@@ -1,11 +1,11 @@
-"""gpmpc_tpu — a TPU-native Gaussian-process model-predictive-control framework.
+"""gpmpc_tpu — a GPU-native Gaussian-process model-predictive-control framework.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of `amacati/gp-mpc`
 (reference mounted read-only at /root/reference). The reference delegates all heavy
 compute to native libraries (acados C SQP solver + HPIPM, CasADi C++ symbolic algebra,
 GPyTorch/LibTorch); here the entire control loop — dynamics, GP posterior, SQP with an
 interior-point OCP-QP, covariance propagation, and the simulator — is a single jitted,
-batchable, shardable JAX program that runs on TPU without host round-trips.
+batchable, shardable JAX program that runs on the accelerator without host round-trips.
 
 Layer map (mirrors SURVEY.md §1):
   L0  ops/        — Riccati, box-constrained OCP-QP interior point, SQP, linalg

@@ -15,8 +15,6 @@ from itertools import chain, count
 from pathlib import Path
 from typing import Any
 
-import yaml
-
 
 def _build(cls, data: dict[str, Any]):
     names = {f.name for f in fields(cls)}
@@ -40,10 +38,10 @@ class GpMpcSection:
         }
     )
     prob: float = 0.95
-    device: str = "tpu"  # informational; JAX owns placement
+    device: str = "gpu"  # informational; JAX owns placement
     sparse_gp: bool = True
     max_gp_samples: int = 40
-    # TPU-native additions (no reference counterpart):
+    # Additions with no reference counterpart:
     sqp_iters: int = 25  # ≙ acados nlp_solver_max_iter
     qp_iters: int = 15  # interior-point iterations per QP
     max_gp_points: int = 128  # padded GP dataset capacity (avoids re-jit on growth)
@@ -55,9 +53,9 @@ class GpMpcSection:
     # Levenberg-Marquardt SQP damping (≙ acados levenberg_marquardt): added
     # to the GN Hessian blocks only; 0 = off. See ops/sqp.py SqpConfig.lm_reg.
     lm_reg: float = 0.0
-    # Per-step solve backend of the reference-shaped API: "auto" rides the
-    # lanes padded-tile Pallas path on TPU and falls back to XLA on CPU;
-    # "lanes"/"xla" force it (control/gpmpc.py::GPMPC._resolve_step_backend).
+    # Per-step solve backend of the reference-shaped API, decided by
+    # parallel/batch.py::dispatch_decision: "auto"/"lanes" take the Pallas QP
+    # kernel on a GPU and the XLA path on the CPU; "xla" forces XLA.
     step_backend: str = "auto"
 
     _STEP_BACKENDS = ("auto", "lanes", "xla")
@@ -99,6 +97,8 @@ class Config:
 
     @classmethod
     def from_yaml(cls, path: str | Path) -> "Config":
+        import yaml  # only the YAML driver path needs PyYAML
+
         with open(path) as f:
             raw = yaml.safe_load(f)
         return cls.from_dict(raw)

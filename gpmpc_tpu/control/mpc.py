@@ -1,6 +1,6 @@
 """Nominal nonlinear MPC (full prior model, no GP).
 
-≙ /root/reference/gpmpc/mpc.py:12-193, rebuilt TPU-first: instead of emitting C via
+≙ /root/reference/gpmpc/mpc.py:12-193, rebuilt as a JAX program: instead of emitting C via
 acados and calling it through ctypes each step, the whole controller step — periodic
 reference windowing, SQP with RK4-linearized dynamics, interior-point QP — is one
 jitted pure function over an explicit `MpcState`. Episodes `lax.scan` over it and

@@ -80,7 +80,7 @@ class GaussianProcess:
         return np.asarray(mean), np.asarray(var)
 
 
-def fit_gp(gp: GaussianProcess, n_train: int = 500, lr: float = 0.01, device: str = "tpu"):
+def fit_gp(gp: GaussianProcess, n_train: int = 500, lr: float = 0.01, device: str = "gpu"):
     """Functional form matching the reference signature (gp.py:49). `device` is
     informational — JAX owns placement."""
     assert isinstance(gp, GaussianProcess), f"gp must be a GaussianProcess, got {type(gp)}"

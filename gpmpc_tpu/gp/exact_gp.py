@@ -46,9 +46,7 @@ class GPHypers(NamedTuple):
     `raw_lengthscale` is a scalar for the isotropic kernel (the reference's
     RBFKernel default) or shape (D,) for ARD (≙ gpytorch ard_num_dims). The jnp
     kernel call sites broadcast over either shape (with padded input columns the
-    ARD lengthscales of dead dimensions simply receive zero gradient); since
-    round 3 the fused Pallas kernels (ops/pallas_gp.py, ops/pallas_linearize.py)
-    take per-dimension reciprocal squares, so ARD rides the fast paths too."""
+    ARD lengthscales of dead dimensions simply receive zero gradient)."""
 
     raw_lengthscale: jax.Array  # scalar or (D,)
     raw_outputscale: jax.Array  # scalar
@@ -191,12 +189,12 @@ def fit_gp(
     if hypers is None:
         hypers = init_hypers(data.x.dtype)
 
-    # TPU: f32 matmuls default to bf16 MXU passes, and a long Adam run drives
-    # the likelihood noise toward its floor until the Gram's conditioning
-    # exceeds bf16's 8-bit mantissa — the config-default 500-iteration fit
-    # NaN'd on TPU (clean on CPU, round 5) exactly like the round-2 Riccati.
-    # The fit is off the control hot path, so full-precision matmuls cost
-    # nothing that matters; see also _robust_cholesky's jitter escalation.
+    # Accelerator f32 matmuls may default to reduced-precision passes (TF32 on
+    # a GPU), and a long Adam run drives the likelihood noise toward its floor
+    # until the Gram's conditioning exceeds what those passes keep — the
+    # config-default 500-iteration fit then NaNs. The fit is off the control
+    # hot path, so full-precision matmuls cost nothing that matters; see also
+    # _robust_cholesky's jitter escalation.
     with jax.default_matmul_precision("highest"):
         return _fit_gp_highest(data, hypers, n_train, lr)
 
@@ -269,7 +267,7 @@ def predict_var(
 
     The reference approximates this with GPyTorch LOVE fast predictive variances
     (fast_pred_var, gpmpc.py:443-445); at these dataset sizes the exact Cholesky
-    path is both cheaper and exact on TPU.
+    path is both cheaper and exact.
     """
     K_zx = se_kernel(z, data.x, hypers.lengthscale, hypers.outputscale) * data.mask[None, :]
     v = jax.scipy.linalg.solve_triangular(post.chol, K_zx.T, lower=True)

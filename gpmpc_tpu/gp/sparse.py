@@ -68,17 +68,18 @@ def fitc_posterior(
 
     with W = K_ss^-1 - (K_ss + K_xs' Gamma^-1 K_xs)^-1. This makes the
     large-dataset variance an O(Ms^2)-per-query quadratic form — the same shape
-    as the exact K_inv form, so both share one fused inference kernel
-    (ops/pallas_gp.py). It is the principled inducing-point analogue of the
+    as the exact K_inv form, so both share one batched variance GEMM
+    (control/gpmpc.py::gp_variances). It is the principled inducing-point analogue of the
     reference's LOVE-approximated `fast_pred_var` tightening variance
     (/root/reference/gpmpc/gpmpc.py:8,443-445): both trade an O(N^2) exact form
     for a low-rank one computed at train time.
     """
     # Train-time factorization off the control hot path: pin full-precision
-    # matmuls (TPU f32 matmuls default to bf16 MXU passes; the near-rank-1
-    # K_ss factorizations here are exactly the conditioning regime that loses
-    # positive-definiteness at bf16 — same class as the round-2 Riccati NaN
-    # and round 5's 500-iteration fit NaN in exact_gp.fit_gp).
+    # matmuls (accelerator f32 matmuls may default to TF32 or bf16 passes; the
+    # near-rank-1 K_ss factorizations here are exactly the conditioning regime
+    # that loses positive-definiteness at reduced precision — same class as the
+    # Riccati and 500-iteration-fit NaNs noted in riccati.py and
+    # exact_gp.fit_gp).
     with jax.default_matmul_precision("highest"):
         return _fitc_posterior_highest(hypers, data, idx, s_mask)
 

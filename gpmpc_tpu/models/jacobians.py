@@ -13,12 +13,9 @@ this module evaluates them directly and chains them through RK4:
 
 Parity with jacfwd is locked by tests/test_jacobians.py (<= 1e-5).
 
-Measured trade-off (v5e, B=512 closed loop): this path is ~35% SLOWER than the
-jacfwd default — the RK4 chain's batched 12x12 matmuls are exactly the shape XLA
-lowers poorly (the same disease the Pallas lanes kernel fixes for the QP), while
-jacfwd's per-tangent elementwise work vectorizes well over B*T*16. It remains the
-right evaluator for host/CPU deployments and is the natural input format for a
-future in-kernel linearizer; default off (SqpConfig.analytic_jac).
+Speed on the GPU against jacfwd: not measured. The RK4 chain here is batched
+12x12 matmuls, the shape XLA lowers poorly, while jacfwd's per-tangent work is
+elementwise. Default off (SqpConfig.analytic_jac).
 """
 
 from __future__ import annotations

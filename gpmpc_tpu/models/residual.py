@@ -71,14 +71,6 @@ class ResidualSpec:
     # y (N, num_gps)) residual training data (≙ preprocess_data,
     # gpmpc.py:113-151).
     make_targets: Callable[..., tuple[jax.Array, jax.Array]] = field(repr=False)
-    # The fused in-kernel linearizer (ops/pallas_linearize.py) is hand-derived
-    # per model family; families without one fall back to jacfwd/XLA.
-    supports_kernel_linearize: bool = False
-    # model.params -> (8,) f32 row: the family's plant parameters packed into
-    # the SMEM layout its kernel linearizer reads (None without a kernel).
-    kernel_params: Callable[..., jax.Array] | None = field(
-        default=None, repr=False
-    )
 
     @property
     def num_gps(self) -> int:
@@ -161,12 +153,6 @@ def _quad_make_targets(model, x, u, x_next):
     return preprocess_data_jnp(model, float(p.a), float(p.b), x, u, x_next)
 
 
-def _quad_kernel_params(p) -> jax.Array:
-    """[a, b, c, d, e, f, h, l] — the SMEM row ops/pallas_linearize.py's
-    quadrotor closure reads."""
-    return jnp.asarray([p.a, p.b, p.c, p.d, p.e, p.f, p.h, p.l], jnp.float32)
-
-
 QUADROTOR_SPEC = ResidualSpec(
     name="quadrotor",
     z_dim=7,
@@ -176,8 +162,6 @@ QUADROTOR_SPEC = ResidualSpec(
     mean_rows=_quad_mean_rows,
     var_factors=_quad_var_factors,
     make_targets=_quad_make_targets,
-    supports_kernel_linearize=True,
-    kernel_params=_quad_kernel_params,
 )
 
 
@@ -229,14 +213,6 @@ def _cart_make_targets(model, x, u, x_next):
     return _cart_gp_input(x, u), y
 
 
-def _cart_kernel_params(p) -> jax.Array:
-    """[m_cart, m_pole, length, 0, 0, 0, 0, 0] — the SMEM row
-    ops/pallas_linearize.py's cartpole closure reads."""
-    return jnp.asarray(
-        [p.m_cart, p.m_pole, p.length, 0.0, 0.0, 0.0, 0.0, 0.0], jnp.float32
-    )
-
-
 CARTPOLE_SPEC = ResidualSpec(
     name="cartpole",
     z_dim=4,
@@ -249,8 +225,6 @@ CARTPOLE_SPEC = ResidualSpec(
     mean_rows=_cart_mean_rows,
     var_factors=_cart_var_factors,
     make_targets=_cart_make_targets,
-    supports_kernel_linearize=True,
-    kernel_params=_cart_kernel_params,
 )
 
 
@@ -330,8 +304,4 @@ TWOLINK_SPEC = ResidualSpec(
     mean_rows=_twolink_mean_rows,
     var_factors=_twolink_var_factors,
     make_targets=_twolink_make_targets,
-    supports_kernel_linearize=True,
-    kernel_params=lambda p: jnp.asarray(
-        [p.m1, p.m2, p.l1, p.l2, 0.0, 0.0, 0.0, 0.0], jnp.float32
-    ),
 )

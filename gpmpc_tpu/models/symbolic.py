@@ -1,4 +1,4 @@
-"""The "symbolic model" layer, TPU-style.
+"""The "symbolic model" layer, as traced JAX functions.
 
 In the reference, `crazyflow.sim.symbolic.symbolic_attitude` builds a CasADi object
 with `.x_sym/.u_sym/.fc_func/.df_func` so acados can code-generate C from analytic

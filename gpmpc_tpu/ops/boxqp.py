@@ -1,6 +1,6 @@
 """Box-constrained OCP-QP solver: infeasible-start primal-dual interior point.
 
-TPU-native replacement for HPIPM (the reference's QP backend, selected at
+JAX replacement for HPIPM (the reference's QP backend, selected at
 /root/reference/gpmpc/mpc.py:115 / gpmpc/gpmpc.py:258 as
 "PARTIAL_CONDENSING_HPIPM"). Same mathematical class of method — a primal-dual
 interior point whose Newton systems are solved by stage-wise Riccati factorization —

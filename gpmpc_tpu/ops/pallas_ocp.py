@@ -1,145 +1,56 @@
-"""Batch-on-lanes Pallas kernel for the box-constrained OCP-QP interior point.
+"""Scenario-blocked Pallas kernel for the box-constrained OCP-QP interior point.
 
-Why this kernel exists: the OCP's per-stage blocks are 12x12 / 12x4 — far below
-the 128x128 MXU tile — and XLA lowers `vmap`-batched small matmuls at <0.1%
-utilization (measured: ~1.1k GP-MPC solves/s on a v5e regardless of batch size).
-This kernel transposes the scenario batch onto the 128-wide *lane* axis, so every
-matrix entry is a (sublane) row of 128 scenarios and every multiply-add in the
-Riccati recursion and IP algebra is a full-width VPU op. The whole QP solve —
-`n_ip` interior-point iterations, each a backward Riccati sweep + forward rollout
-+ slack/dual updates + fraction-to-boundary steps — runs in ONE kernel launch with
-all state resident in VMEM, replacing ~10^4 tiny XLA ops per solve.
+Why this kernel exists: the OCP's per-stage blocks are 12x12 / 12x4, and the
+plain XLA path (vmapped `boxqp.solve_ocp_qp`) runs the interior point as a long
+sequential loop of tiny batched kernels — IP iterations x 2 sweeps x T stages,
+each a handful of launches. This kernel runs the whole QP solve — `n_ip`
+interior-point iterations, each a backward Riccati sweep, a forward rollout,
+slack/dual updates and fraction-to-boundary steps — in ONE launch.
 
-This is the TPU-native answer to HPIPM+BLASFEO's panel-major small-matrix BLAS
-(SURVEY.md §2.2): instead of panel-packing matrices for CPU SIMD, we lane-pack
-scenarios for the VPU.
+Layout: every array carries the scenario axis LAST, e.g. A is (T, nx, nx, B).
+The launch grid runs over blocks of S consecutive scenarios (`SCENARIO_BLOCK`);
+inside a program every scalar of the textbook algorithm is an (S,) vector, one
+scenario per thread. Stage matrices are unrolled at trace time into Python lists
+of such vectors, so the body is elementwise float32 arithmetic only (no dot
+products, hence no TF32 rounding) plus (S,)-wide loads and stores at static
+matrix indices and a dynamic stage index. The stage loops are `fori_loop`s, so
+one body serves every horizon.
 
-Layout convention: every tensor carries the lane axis LAST, e.g. A is
-(T, nx, nx, LANES). `lanes_matmul(X[a,b,L], Y[b,c,L]) -> [a,c,L]` is a
-broadcast-multiply + sublane reduction; the 4x4 Guu systems are solved by an
-unrolled lane-wise Cholesky.
+Triton has no scratch memory: the IP state (slacks, duals, soft-bound slacks),
+the Riccati gains, the Mehrotra factor stores and the Newton directions live in
+extra outputs in global memory. Every thread reads back only the entries it
+wrote itself (same (S,) layout for every access), so no barrier is needed.
 
-Semantics are identical to `boxqp.solve_ocp_qp` restricted to DIAGONAL stage cost
-Hessians (always true here: Gauss-Newton of LINEAR_LS with diagonal Q/R plus the
-diagonal IP barrier), verified in tests/test_pallas_ocp.py.
+Semantics are identical to `boxqp.solve_ocp_qp` restricted to DIAGONAL stage
+cost Hessians (always true here: Gauss-Newton of LINEAR_LS with diagonal Q/R
+plus the diagonal IP barrier), with two additions: an adaptive exit once every
+scenario of a block has its centering parameter below `adaptive_tol`, and a
+factorize-once Mehrotra corrector. Verified in tests/test_pallas_ocp.py.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
-LANES = 128  # scenario tile width (lane dimension)
-
-# Scoped-VMEM budget requested for the QP kernels. The Mosaic default (16 MiB)
-# is a compiler default, NOT the physical per-core VMEM: a 120 MB scratch
-# allocation compiles and runs on the v5e this repo benches on (measured,
-# docs/EXPERIMENTS_r5.md). 112 MB keeps headroom for XLA-managed buffers of
-# the surrounding program while letting the all-resident kernel serve the
-# horizons that previously forced DMA streaming.
-VMEM_LIMIT_BYTES = 112 * 1024 * 1024
-
-
-def _mm(x, y):
-    """Lane-wise matmul: (a, b, L) @ (b, c, L) -> (a, c, L).
-
-    Accumulated over k with (a, c, L) partials rather than materializing the
-    (a, b, c, L) outer product — an order of magnitude less live VMEM per matmul
-    (73 KB vs 880 KB at 12x12x12x128), which is what bounds the resident-horizon
-    budget."""
-    b = x.shape[1]
-    acc = x[:, 0:1, :] * y[0:1, :, :]
-    for k in range(1, b):
-        acc = acc + x[:, k : k + 1, :] * y[k : k + 1, :, :]
-    return acc
-
-
-def _mv(x, v):
-    """Lane-wise matvec: (a, b, L) @ (b, L) -> (a, L)."""
-    return jnp.sum(x * v[None, :, :], axis=1)
-
-
-def _t(x):
-    """Transpose the two leading (matrix) dims of (a, b, L)."""
-    return jnp.swapaxes(x, 0, 1)
-
-
-def _chol4_factor(G):
-    """Lane-wise Cholesky factor of SPD G (n, n, L) -> lower-triangular rows
-    as a list-of-lists of (L,) vectors (entries above the diagonal are None).
-
-    Every scalar of the textbook n x n algorithm is a 128-lane vector here.
-    n is the (small, trace-time) input dimension: 4 for the quadrotor, 1 for
-    the cartpole; the loops unroll at trace time."""
-    n = G.shape[0]
-    g = [[G[i, j] for j in range(n)] for i in range(n)]
-    l = [[None] * n for _ in range(n)]
-    for j in range(n):
-        s = g[j][j]
-        for k in range(j):
-            s = s - l[j][k] * l[j][k]
-        l[j][j] = jnp.sqrt(jnp.maximum(s, 1e-12))
-        inv = 1.0 / l[j][j]
-        for i in range(j + 1, n):
-            s = g[i][j]
-            for k in range(j):
-                s = s - l[i][k] * l[j][k]
-            l[i][j] = s * inv
-    return l
-
-
-def _chol4_pack(l):
-    """Lower-triangular factor rows -> a dense (n, n, L) array (upper = 0),
-    for storing the factorization in scratch across Newton solves."""
-    n = len(l)
-    zero = jnp.zeros_like(l[0][0])
-    return jnp.stack(
-        [jnp.stack([l[i][j] if j <= i else zero for j in range(n)]) for i in range(n)]
-    )
-
-
-def _chol4_unpack(lmat):
-    """(n, n, L) packed factor -> list-of-lists of (L,) vectors."""
-    n = lmat.shape[0]
-    return [[lmat[i, j] if j <= i else None for j in range(n)] for i in range(n)]
-
-
-def _chol4_sub(l, rhs):
-    """Triangular substitutions with a precomputed factor: solve L L' X = rhs,
-    rhs (n, m, L) -> (n, m, L)."""
-    n = len(l)
-    # forward substitution L y = rhs
-    y = [None] * n
-    for i in range(n):
-        s = rhs[i]
-        for k in range(i):
-            s = s - l[i][k][None, :] * y[k]
-        y[i] = s / l[i][i][None, :]
-    # back substitution L' x = y
-    x = [None] * n
-    for i in reversed(range(n)):
-        s = y[i]
-        for k in range(i + 1, n):
-            s = s - l[k][i][None, :] * x[k]
-        x[i] = s / l[i][i][None, :]
-    return jnp.stack(x, axis=0)
-
-
-def _chol4_solve(G, rhs):
-    """Solve G X = rhs for SPD G: (n, n, L), rhs: (n, m, L) -> (n, m, L)."""
-    return _chol4_sub(_chol4_factor(G), rhs)
+# Scenarios per program. One warp runs a block, one scenario per thread, so
+# 24 of its 32 threads idle; the narrow block puts the default batch (B=1024)
+# on 128 programs, about one per SM. On the H100 a 16-wide block was no
+# faster at B=1024, and a 32-wide one crashed the process.
+SCENARIO_BLOCK = 8
 
 
 class LanesQp(NamedTuple):
-    """QP data in lanes layout. Shapes (T = horizon, L = lane tile):
-    A (T,nx,nx,L)  B (T,nx,nu,L)  r (T,nx,L)
-    qdiag (T+1,nx,L)  qx (T+1,nx,L)  rdiag (T,nu,L)  ru (T,nu,L)
-    lx/ux (T+1,nx,L)  lu/uu (T,nu,L)
+    """QP data with the scenario axis last. Shapes (T = horizon, B = batch):
+    A (T,nx,nx,B)  B (T,nx,nu,B)  r (T,nx,B)
+    qdiag (T+1,nx,B)  qx (T+1,nx,B)  rdiag (T,nu,B)  ru (T,nu,B)
+    lx/ux (T+1,nx,B)  lu/uu (T,nu,B)
     """
 
     A: jax.Array
@@ -155,1646 +66,611 @@ class LanesQp(NamedTuple):
     uu: jax.Array
 
 
-def _ip_kernel_body(
-    n_ip: int, mu0: float, sigma: float, tau: float, adaptive_tol, mehrotra: bool,
-    soft_rho,
-    # refs: qp data
-    A_ref, B_ref, r_ref, qdiag_ref, qx_ref, rdiag_ref, ru_ref,
-    lx_ref, ux_ref, lu_ref, uu_ref,
-    # outputs
-    dx_out, du_out, gap_out,
-    # scratch (mehrotra appends Pr_s/lchol_s/Gxu_s — the shared-factorization
-    # stores; soft_rho appends elx_s/eux_s/nulx_s/nuux_s after those)
-    dx_s, du_s, slx_s, sux_s, slu_s, suu_s, llx_s, lux_s, llu_s, luu_s,
-    K_s, kff_s, rdyn_s, qhat_s, rhat_s, sigx_s, sigu_s, mu_s,
-    *extra_scratch,
-):
-    T = A_ref.shape[0]
-    nx = A_ref.shape[1]
-    nu = B_ref.shape[2]
-    L = A_ref.shape[3]
-    f32 = jnp.float32
-    soft = soft_rho is not None
-    rest = list(extra_scratch)
-    if mehrotra:
-        Pr_s, lchol_s, Gxu_s = rest[:3]
-        rest = rest[3:]
+class _Bound(NamedTuple):
+    """One box-constrained variable of one stage, each field an (S,) vector:
+    value v in [lo, hi], slacks s, duals lam, and (soft state bounds only) the
+    L1 violation slacks e and explicit penalty duals nu = rho - lam."""
+
+    v: jax.Array
+    lo: jax.Array
+    hi: jax.Array
+    sl: jax.Array
+    su: jax.Array
+    ll: jax.Array
+    lu: jax.Array
+    el: jax.Array | None = None
+    eu: jax.Array | None = None
+    nl: jax.Array | None = None
+    nu: jax.Array | None = None
+
+
+# ---- per-variable IP algebra (ops/boxqp.py, elementwise) --------------------
+
+
+def _weights(b: _Bound):
+    """Barrier weights (w_l, w_u) and, for soft bounds, the fused denominators
+    den = s*nu + e*lam. The soft form never divides by lam or nu alone (the
+    naive 1/(s/lam + e/nu) NaNs in f32 once lam underflows); the max() caps w
+    at 1e6, a proximal regularization that keeps the f32 Riccati positive
+    definite for active-not-violated soft bounds (see boxqp.py)."""
+    if b.el is None:
+        return b.ll / b.sl, b.lu / b.su, None, None
+    den_l = jnp.maximum(b.sl * b.nl + b.el * b.ll, b.ll * b.nl * 1e-6)
+    den_u = jnp.maximum(b.su * b.nu + b.eu * b.lu, b.lu * b.nu * 1e-6)
+    return b.ll * b.nl / den_l, b.lu * b.nu / den_u, den_l, den_u
+
+
+def _slack_residuals(b: _Bound):
+    r_sl = b.v - b.lo - b.sl
+    r_su = b.hi - b.v - b.su
+    if b.el is not None:
+        r_sl = r_sl + b.el
+        r_su = r_su + b.eu
+    return r_sl, r_su
+
+
+def _rc_affine(b: _Bound):
+    """Complementarity residuals of the pure Newton (affine) step."""
+    if b.el is None:
+        return b.sl * b.ll, b.su * b.lu, None, None
+    return b.sl * b.ll, b.su * b.lu, b.el * b.nl, b.eu * b.nu
+
+
+def _rc_shift(rc, shift):
+    return tuple(None if r is None else r - shift for r in rc)
+
+
+def _correction(b: _Bound, rc):
+    """RHS correction of the Newton system from eliminating (ds, de, dlam)."""
+    r_sl, r_su = _slack_residuals(b)
+    r_cl, r_cu, r_el, r_eu = rc
+    if b.el is None:
+        return (r_cl + b.ll * r_sl) / b.sl - (r_cu + b.lu * r_su) / b.su
+    _, _, den_l, den_u = _weights(b)
+    cg_l = (b.ll * b.nl * r_sl + b.nl * r_cl - b.ll * r_el) / den_l
+    cg_u = (b.lu * b.nu * r_su + b.nu * r_cu - b.lu * r_eu) / den_u
+    return cg_l - cg_u
+
+
+def _directions(b: _Bound, d, rc):
+    """(ds_l, ds_u, dl_l, dl_u, de_l, de_u) for the primal step d."""
+    r_sl, r_su = _slack_residuals(b)
+    r_cl, r_cu, r_el, r_eu = rc
+    if b.el is None:
+        ds_l = d + r_sl
+        ds_u = r_su - d
+        dl_l = -(r_cl + b.ll * ds_l) / b.sl
+        dl_u = -(r_cu + b.lu * ds_u) / b.su
+        return ds_l, ds_u, dl_l, dl_u, None, None
+    w_l, w_u, den_l, den_u = _weights(b)
+    cg_l = (b.ll * b.nl * r_sl + b.nl * r_cl - b.ll * r_el) / den_l
+    cg_u = (b.lu * b.nu * r_su + b.nu * r_cu - b.lu * r_eu) / den_u
+    dl_l = -(w_l * d + cg_l)
+    dl_u = w_u * d - cg_u
+    de_l = (-r_el + b.el * dl_l) / b.nl
+    de_u = (-r_eu + b.eu * dl_u) / b.nu
+    ds_l = d + de_l + r_sl
+    ds_u = -d + de_u + r_su
+    return ds_l, ds_u, dl_l, dl_u, de_l, de_u
+
+
+def _rc_corrector(b: _Bound, d_aff, target):
+    """Mehrotra corrector residuals: centering + second-order ds_aff*dlam_aff
+    terms (d(e)*d(nu) = -de_aff*dlam_aff for the soft pairs)."""
+    ds_l, ds_u, dl_l, dl_u, de_l, de_u = _directions(b, d_aff, _rc_affine(b))
+    r_cl = b.sl * b.ll + ds_l * dl_l - target
+    r_cu = b.su * b.lu + ds_u * dl_u - target
+    if b.el is None:
+        return r_cl, r_cu, None, None
+    return r_cl, r_cu, b.el * b.nl - de_l * dl_l - target, b.eu * b.nu - de_u * dl_u - target
+
+
+def _ratio(v, d, t):
+    return jnp.where(d < 0, -t * v / jnp.minimum(d, -1e-30), jnp.inf)
+
+
+def _step_limits(b: _Bound, dirs, t, a_p, a_d):
+    """Fold this variable's fraction-to-boundary limits into (a_p, a_d)."""
+    ds_l, ds_u, dl_l, dl_u, de_l, de_u = dirs
+    a_p = jnp.minimum(a_p, jnp.minimum(_ratio(b.sl, ds_l, t), _ratio(b.su, ds_u, t)))
+    a_d = jnp.minimum(a_d, jnp.minimum(_ratio(b.ll, dl_l, t), _ratio(b.lu, dl_u, t)))
+    if b.el is not None:
+        # e stays positive (primal); nu = rho - lam stays positive (dual).
+        a_p = jnp.minimum(a_p, jnp.minimum(_ratio(b.el, de_l, t), _ratio(b.eu, de_u, t)))
+        a_d = jnp.minimum(a_d, jnp.minimum(_ratio(b.nl, -dl_l, t), _ratio(b.nu, -dl_u, t)))
+    return a_p, a_d
+
+
+def _complementarity(b: _Bound):
+    g = b.sl * b.ll + b.su * b.lu
+    if b.el is not None:
+        g = g + b.el * b.nl + b.eu * b.nu
+    return g
+
+
+def _complementarity_after(b: _Bound, dirs, a_p, a_d):
+    ds_l, ds_u, dl_l, dl_u, de_l, de_u = dirs
+    g = (b.sl + a_p * ds_l) * (b.ll + a_d * dl_l) + (b.su + a_p * ds_u) * (b.lu + a_d * dl_u)
+    if b.el is not None:
+        g = g + (b.el + a_p * de_l) * (b.nl - a_d * dl_l)
+        g = g + (b.eu + a_p * de_u) * (b.nu - a_d * dl_u)
+    return g
+
+
+# ---- the kernel ---------------------------------------------------------------
+
+
+class _Opts(NamedTuple):
+    n_ip: int
+    mu0: float
+    sigma: float
+    tau: float
+    adaptive_tol: float | None
+    mehrotra: bool
+    soft_rho: float | None
+
+
+def _tril(n):
+    return [(c, d) for c in range(n) for d in range(c + 1)]
+
+
+def _chol(G, n):
+    """Lane-wise Cholesky of the (n, n) SPD matrix given as {(c, d): vec} for
+    c >= d; returns the lower factor in the same form."""
+    Lc = {}
+    for c in range(n):
+        acc = G[(c, c)]
+        for d in range(c):
+            acc = acc - Lc[(c, d)] * Lc[(c, d)]
+        Lc[(c, c)] = jnp.sqrt(jnp.maximum(acc, 1e-12))
+        for e in range(c + 1, n):
+            acc = G[(e, c)]
+            for d in range(c):
+                acc = acc - Lc[(e, d)] * Lc[(c, d)]
+            Lc[(e, c)] = acc / Lc[(c, c)]
+    return Lc
+
+
+def _solve_lower(Lc, rhs):
+    """Forward substitution L y = rhs."""
+    y = []
+    for c in range(len(rhs)):
+        acc = rhs[c]
+        for d in range(c):
+            acc = acc - Lc[(c, d)] * y[d]
+        y.append(acc / Lc[(c, c)])
+    return y
+
+
+def _solve_upper(Lc, rhs):
+    """Back substitution L' x = rhs."""
+    n = len(rhs)
+    x = [None] * n
+    for c in reversed(range(n)):
+        acc = rhs[c]
+        for d in range(c + 1, n):
+            acc = acc - Lc[(d, c)] * x[d]
+        x[c] = acc / Lc[(c, c)]
+    return x
+
+
+class _Rows:
+    """A (rows, S) kernel ref viewed with its logical leading shape: indexing
+    with one scalar per leading dimension reads or writes one (S,) row. Every
+    buffer is passed flattened to 2-D so each access is one row offset."""
+
+    def __init__(self, ref, lead):
+        self.ref = ref
+        self.strides = [int(math.prod(lead[d + 1:])) for d in range(len(lead))]
+
+    def _row(self, idx):
+        idx = idx if isinstance(idx, tuple) else (idx,)
+        row = 0
+        for i, st in zip(idx, self.strides):
+            row = row + i * st
+        return row
+
+    def __getitem__(self, idx):
+        return self.ref[self._row(idx)]
+
+    def __setitem__(self, idx, val):
+        self.ref[self._row(idx)] = val
+
+
+def _ip_kernel(o: _Opts, T: int, nx: int, nu: int, leads, *flat_refs):
+    """One program: the whole IP solve for one block of scenarios.
+
+    Every loop over stages or matrix rows is a `fori_loop`, and only the
+    short inner products (length nx or nu) are unrolled, so each piece of the
+    algebra appears once in the program. Matrices that the Riccati recursion
+    carries from stage to stage (P, P A, P B) live in per-block buffers."""
+    soft = o.soft_rho is not None
+    refs = [_Rows(ref, lead) for ref, lead in zip(flat_refs, leads)]
+    (A, Bm, r, qdiag, qx, rdiag, ru, lx, ux, lu, uu,
+     dx, du, gap_out, slx, sux, slu, suu, llx, lux, llu, luu,
+     rdyn, K, kff, Pr, Lf, Y, ddx, ddu,
+     P, p, PA, PB, frp, qh, sgx, rh, sgu, *rest) = refs
+    if o.mehrotra:
+        ddxa, ddua, *rest = rest
+    else:
+        ddxa = ddua = None
     if soft:
-        elx_s, eux_s, nulx_s, nuux_s = rest
+        elx, eux, nulx, nuux = rest
+        x_group = (dx, lx, ux, slx, sux, llx, lux, elx, eux, nulx, nuux)
+    else:
+        x_group = (dx, lx, ux, slx, sux, llx, lux)
+    u_group = (du, lu, uu, slu, suu, llu, luu)
+    S = flat_refs[0].shape[-1]
+    f32 = jnp.float32
+    s_min = 1e-2
+    m_total = 2.0 * ((T + 1) * nx + T * nu) + (2.0 * (T + 1) * nx if soft else 0.0)
+    floor = 1e-8 if soft else 1e-12  # per-scenario f32 validity floor on mu
+    zeros = jnp.zeros((S,), f32)
+    fori = jax.lax.fori_loop
+
+    def load(group, k, i):
+        return _Bound(*(ref[k, i] for ref in group))
+
+    def store(group, k, i, b: _Bound):
+        for ref, val in zip(group[3:], b[3:]):
+            ref[k, i] = val
+
+    def over(n, body, carry):
+        return fori(0, n, body, carry)
+
+    def x_and_u(k, x_body, u_body, carry):
+        """x-variables of stage k, then (k < T) its u-variables."""
+        carry = over(nx, lambda i, c: x_body(k, i, c), carry)
+        return over(nu, lambda i, c: u_body(k, i, c), carry)
+
+    def backward(stage):
+        """stage(k) for k = T-1 .. 0."""
+        def body(i, c):
+            stage(T - 1 - i)
+            return c
+
+        fori(0, T, body, 0)
+
+    def all_stages(x_body, u_body, carry):
+        carry = fori(0, T, lambda k, c: x_and_u(k, x_body, u_body, c), carry)
+        return over(nx, lambda i, c: x_body(T, i, c), carry)
 
     # ---- init: dx = du = 0, slacks clipped to the interior, duals mu0/s ----
-    s_min = 1e-2
-    dx_s[...] = jnp.zeros((T + 1, nx, L), f32)
-    du_s[...] = jnp.zeros((T, nu, L), f32)
-    if soft:
-        # L1-soft state bounds (see ops/boxqp.py module docstring for the
-        # bounded-multiplier formulation): s = dx + e - lx, multipliers in
-        # (0, rho), extra complementarity e * nu = mu per bound, with the
-        # penalty dual nu = rho - lam tracked EXPLICITLY (recomputing rho - lam
-        # quantizes to 0 in f32 once lam -> rho).
-        elx_s[...] = jnp.full((T + 1, nx, L), s_min, f32)
-        eux_s[...] = jnp.full((T + 1, nx, L), s_min, f32)
-        slx_s[...] = jnp.maximum(s_min - lx_ref[...], s_min)
-        sux_s[...] = jnp.maximum(ux_ref[...] + s_min, s_min)
-        llx_s[...] = jnp.minimum(mu0 / slx_s[...], 0.49 * soft_rho)
-        lux_s[...] = jnp.minimum(mu0 / sux_s[...], 0.49 * soft_rho)
-        nulx_s[...] = soft_rho - llx_s[...]
-        nuux_s[...] = soft_rho - lux_s[...]
-    else:
-        slx_s[...] = jnp.maximum(-lx_ref[...], s_min)
-        sux_s[...] = jnp.maximum(ux_ref[...], s_min)
-        llx_s[...] = mu0 / slx_s[...]
-        lux_s[...] = mu0 / sux_s[...]
-    slu_s[...] = jnp.maximum(-lu_ref[...], s_min)
-    suu_s[...] = jnp.maximum(uu_ref[...], s_min)
-    llu_s[...] = mu0 / slu_s[...]
-    luu_s[...] = mu0 / suu_s[...]
-    m_total = 2.0 * ((T + 1) * nx + T * nu) + (2.0 * (T + 1) * nx if soft else 0.0)
-
-    def lane_min(arr):  # (T?, n, L) -> (L,)
-        return jnp.min(arr.reshape(-1, L), axis=0)
-
-    def lane_sum(arr):
-        return jnp.sum(arr.reshape(-1, L), axis=0)
-
-    def ratio(v, d, t):
-        return jnp.where(d < 0, -t * v / jnp.minimum(d, -1e-30), jnp.inf)
-
-    def solve_newton(corr_x, corr_u, matrix=True):
-        """Backward Riccati sweep + forward rollout for the Newton system with
-        the given complementarity corrections. Barrier diagonals (sigx_s/sigu_s)
-        and rdyn_s must already be staged; returns (ddx, ddu).
-
-        matrix=False (Mehrotra corrector): the KKT matrix is unchanged from the
-        affine predictor (the barrier weights are fixed within an IP iteration;
-        corrections only move the RHS), so the sweep reuses the affine pass's
-        per-stage stores — Pr = P_{k+1} @ rdyn_k, the Guu Cholesky factor, and
-        Gxu — and runs the VECTOR recursion only: no _mm matrix products, no
-        refactorization. This is the textbook predictor-corrector structure
-        (factorize once, two triangular solves) and cuts the corrector sweep
-        ~10x; measured impact recorded in docs/EXPERIMENTS_r5.md."""
-        dx = dx_s[...]
-        du = du_s[...]
-        qhat_s[...] = qdiag_ref[...] * dx + qx_ref[...] - llx_s[...] + lux_s[...] + corr_x
-        rhat_s[...] = rdiag_ref[...] * du + ru_ref[...] - llu_s[...] + luu_s[...] + corr_u
-
-        # ---- backward Riccati sweep (diagonal Q-hat + barrier) ----
-        # Mosaic has no scatter: diagonal updates are eye-mask broadcasts.
-        eye_x = jnp.eye(nx, dtype=f32)[:, :, None]  # (nx, nx, 1)
-        eye_u = jnp.eye(nu, dtype=f32)[:, :, None]
-        if matrix:
-            P = eye_x * (qdiag_ref[T] + sigx_s[T])[None, :, :]
-            p = qhat_s[T]
-            for k in range(T - 1, -1, -1):
-                Ak = A_ref[k]
-                Bk = B_ref[k]
-                Pr = _mv(P, rdyn_s[k])
-                Fr_p = Pr + p
-                AtP = _mm(_t(Ak), P)
-                BtP = _mm(_t(Bk), P)
-                Gxx = _mm(AtP, Ak) + eye_x * (qdiag_ref[k] + sigx_s[k])[None, :, :]
-                Guu = _mm(BtP, Bk) + eye_u * (rdiag_ref[k] + sigu_s[k])[None, :, :]
-                Gxu = _mm(AtP, Bk)
-                gx = qhat_s[k] + _mv(_t(Ak), Fr_p)
-                gu = rhat_s[k] + _mv(_t(Bk), Fr_p)
-
-                rhs = jnp.concatenate([_t(Gxu), gu[:, None, :]], axis=1)  # (nu, nx+1, L)
-                lfac = _chol4_factor(Guu)
-                if mehrotra:
-                    Pr_s[k] = Pr
-                    lchol_s[k] = _chol4_pack(lfac)
-                    Gxu_s[k] = Gxu
-                sol = _chol4_sub(lfac, rhs)
-                K = -sol[:, :nx, :]
-                kff = -sol[:, nx, :]
-                K_s[k] = K
-                kff_s[k] = kff
-                P = Gxx + _mm(Gxu, K)
-                P = 0.5 * (P + _t(P))
-                p = gx + _mv(Gxu, kff)
-        else:
-            # Vector-only corrector sweep over the stored factorization. K_s is
-            # already correct (same KKT matrix); only kff changes.
-            p = qhat_s[T]
-            for k in range(T - 1, -1, -1):
-                Fr_p = Pr_s[k] + p
-                gx = qhat_s[k] + _mv(_t(A_ref[k]), Fr_p)
-                gu = rhat_s[k] + _mv(_t(B_ref[k]), Fr_p)
-                kff = -_chol4_sub(_chol4_unpack(lchol_s[k]), gu[:, None, :])[:, 0, :]
-                kff_s[k] = kff
-                p = gx + _mv(Gxu_s[k], kff)
-
-        # ---- forward rollout ----
-        ddx_prev = jnp.zeros((nx, L), f32)
-        ddu_all = []
-        ddx_all = [ddx_prev]
-        for k in range(T):
-            ddu = _mv(K_s[k], ddx_prev) + kff_s[k]
-            ddx_next = _mv(A_ref[k], ddx_prev) + _mv(B_ref[k], ddu) + rdyn_s[k]
-            ddu_all.append(ddu)
-            ddx_all.append(ddx_next)
-            ddx_prev = ddx_next
-        ddx = jnp.stack(ddx_all, axis=0)  # (T+1, nx, L)
-        ddu = jnp.stack(ddu_all, axis=0)  # (T, nu, L)
-        return ddx, ddu
-
-    def ip_iter_body(mu):
-        dx = dx_s[...]
-        du = du_s[...]
-        slx, sux, slu, suu = slx_s[...], sux_s[...], slu_s[...], suu_s[...]
-        llx, lux, llu, luu = llx_s[...], lux_s[...], llu_s[...], luu_s[...]
+    def init_x(k, i, g):
+        lo, hi = lx[k, i], ux[k, i]
+        dx[k, i] = zeros
         if soft:
-            elx, eux = elx_s[...], eux_s[...]
-            nulx, nuux = nulx_s[...], nuux_s[...]
-            # Fused barrier weight w = lam*nu/den, den = s*nu + e*lam >= 2*mu:
-            # never divides by a (possibly underflowed) lam alone — the naive
-            # w = 1/(s/lam + e/nu) NaNs in f32 (see boxqp.py). The max() caps
-            # w at 1e6 (proximal regularization): active-not-violated soft
-            # bounds otherwise diverge as lam*nu/(2*mu) and break the f32
-            # Riccati's positive-definiteness.
-            den_lx = slx * nulx + elx * llx
-            den_ux = sux * nuux + eux * lux
-            den_lx = jnp.maximum(den_lx, llx * nulx * 1e-6)
-            den_ux = jnp.maximum(den_ux, lux * nuux * 1e-6)
-            w_lx = llx * nulx / den_lx
-            w_ux = lux * nuux / den_ux
+            sl = jnp.maximum(s_min - lo, s_min)
+            su = jnp.maximum(hi + s_min, s_min)
+            ll = jnp.minimum(o.mu0 / sl, 0.49 * o.soft_rho)
+            lu_ = jnp.minimum(o.mu0 / su, 0.49 * o.soft_rho)
+            e = jnp.full((S,), s_min, f32)
+            nb = _Bound(None, lo, hi, sl, su, ll, lu_, e, e,
+                        o.soft_rho - ll, o.soft_rho - lu_)
         else:
-            elx = eux = nulx = nuux = den_lx = den_ux = None
-            w_lx = llx / slx
-            w_ux = lux / sux
-
-        # residuals (soft: s = dx + e - lx / ux + e - dx)
-        r_slx = dx - lx_ref[...] - slx + (elx if soft else 0.0)
-        r_sux = ux_ref[...] - dx - sux + (eux if soft else 0.0)
-        r_slu = du - lu_ref[...] - slu
-        r_suu = uu_ref[...] - du - suu
-
-        sigx_s[...] = w_lx + w_ux
-        sigu_s[...] = llu / slu + luu / suu
-
-        # dynamics residual r_dyn_k = A dx_k + B du_k + r - dx_{k+1}
-        for k in range(T):  # static unroll: T is a trace-time constant
-            rdyn_s[k] = (
-                _mv(A_ref[k], dx_s[k]) + _mv(B_ref[k], du_s[k]) + r_ref[k] - dx_s[k + 1]
-            )
-
-        def directions(r_clx, r_cux, r_clu, r_cuu, r_elx=None, r_eux=None, matrix=True):
-            if soft:
-                # cg = w * (r_s + r_c/lam - r_e/nu), fused over den (boxqp.py).
-                cg_lx = (llx * nulx * r_slx + nulx * r_clx - llx * r_elx) / den_lx
-                cg_ux = (lux * nuux * r_sux + nuux * r_cux - lux * r_eux) / den_ux
-                corr_x = cg_lx - cg_ux
-            else:
-                corr_x = (r_clx + llx * r_slx) / slx - (r_cux + lux * r_sux) / sux
-            corr_u = (r_clu + llu * r_slu) / slu - (r_cuu + luu * r_suu) / suu
-            ddx, ddu = solve_newton(corr_x, corr_u, matrix=matrix)
-            if soft:
-                dl_lx = -(w_lx * ddx + cg_lx)
-                dl_ux = w_ux * ddx - cg_ux
-                de_lx = (-r_elx + elx * dl_lx) / nulx
-                de_ux = (-r_eux + eux * dl_ux) / nuux
-                ds_lx = ddx + de_lx + r_slx
-                ds_ux = -ddx + de_ux + r_sux
-            else:
-                ds_lx = ddx + r_slx
-                ds_ux = r_sux - ddx
-                dl_lx = -(r_clx + llx * ds_lx) / slx
-                dl_ux = -(r_cux + lux * ds_ux) / sux
-                de_lx = de_ux = None
-            ds_lu = ddu + r_slu
-            ds_uu = r_suu - ddu
-            dl_lu = -(r_clu + llu * ds_lu) / slu
-            dl_uu = -(r_cuu + luu * ds_uu) / suu
-            return (
-                ddx, ddu,
-                (ds_lx, ds_ux, ds_lu, ds_uu),
-                (dl_lx, dl_ux, dl_lu, dl_uu),
-                (de_lx, de_ux),
-            )
-
-        def steps(ds, dl, de, t):
-            a_p = jnp.minimum(1.0, jnp.minimum(
-                jnp.minimum(lane_min(ratio(slx, ds[0], t)), lane_min(ratio(sux, ds[1], t))),
-                jnp.minimum(lane_min(ratio(slu, ds[2], t)), lane_min(ratio(suu, ds[3], t))),
-            ))
-            a_d = jnp.minimum(1.0, jnp.minimum(
-                jnp.minimum(lane_min(ratio(llx, dl[0], t)), lane_min(ratio(lux, dl[1], t))),
-                jnp.minimum(lane_min(ratio(llu, dl[2], t)), lane_min(ratio(luu, dl[3], t))),
-            ))
-            if soft:
-                # e must stay positive (primal); nu = rho - lam positive (dual).
-                a_p = jnp.minimum(a_p, jnp.minimum(
-                    lane_min(ratio(elx, de[0], t)), lane_min(ratio(eux, de[1], t))
-                ))
-                a_d = jnp.minimum(a_d, jnp.minimum(
-                    lane_min(ratio(nulx, -dl[0], t)), lane_min(ratio(nuux, -dl[1], t))
-                ))
-            return a_p, a_d
-
-        def gap_of(s_tup, l_tup, e_tup, nu_tup):
-            g = (
-                lane_sum(s_tup[0] * l_tup[0]) + lane_sum(s_tup[1] * l_tup[1])
-                + lane_sum(s_tup[2] * l_tup[2]) + lane_sum(s_tup[3] * l_tup[3])
-            )
-            if soft:
-                g = g + lane_sum(e_tup[0] * nu_tup[0])
-                g = g + lane_sum(e_tup[1] * nu_tup[1])
-            return g / m_total
-
-        if mehrotra:
-            # Affine predictor (per-lane adaptive centering, HPIPM's scheme).
-            gap_now = gap_of(
-                (slx, sux, slu, suu), (llx, lux, llu, luu), (elx, eux), (nulx, nuux)
-            )
-            _, _, ds_a, dl_a, de_a = directions(
-                slx * llx, sux * lux, slu * llu, suu * luu,
-                elx * nulx if soft else None, eux * nuux if soft else None,
-            )
-            ap_a, ad_a = steps(ds_a, dl_a, de_a, 1.0)
-            ap_ = ap_a[None, None, :]
-            ad_ = ad_a[None, None, :]
-            gap_aff = (
-                lane_sum((slx + ap_ * ds_a[0]) * (llx + ad_ * dl_a[0]))
-                + lane_sum((sux + ap_ * ds_a[1]) * (lux + ad_ * dl_a[1]))
-                + lane_sum((slu + ap_ * ds_a[2]) * (llu + ad_ * dl_a[2]))
-                + lane_sum((suu + ap_ * ds_a[3]) * (luu + ad_ * dl_a[3]))
-            )
-            if soft:
-                gap_aff = gap_aff + lane_sum(
-                    (elx + ap_ * de_a[0]) * (nulx - ad_ * dl_a[0])
-                ) + lane_sum((eux + ap_ * de_a[1]) * (nuux - ad_ * dl_a[1]))
-            gap_aff = gap_aff / m_total
-            sig = jnp.clip((gap_aff / jnp.maximum(gap_now, 1e-16)) ** 3, 1e-4, 1.0)
-            # Soft mode: per-lane f32 validity floor on the centering target —
-            # the exit is tile-global, so a converged lane keeps iterating
-            # while its tile-mates finish, and must not center into the regime
-            # where f32 barrier weights break the Riccati (see boxqp.py).
-            target = jnp.maximum(sig * gap_now, 1e-8 if soft else 1e-14)[None, None, :]
-            # Corrector: centering + second-order ds_aff*dlam_aff terms
-            # (d(e)*d(nu) = -de_aff * dlam_aff for the soft pairs). Same KKT
-            # matrix as the affine predictor -> vector-only sweep over the
-            # stored factorization (matrix=False).
-            ddx, ddu, ds, dl, de = directions(
-                slx * llx + ds_a[0] * dl_a[0] - target,
-                sux * lux + ds_a[1] * dl_a[1] - target,
-                slu * llu + ds_a[2] * dl_a[2] - target,
-                suu * luu + ds_a[3] * dl_a[3] - target,
-                elx * nulx - de_a[0] * dl_a[0] - target if soft else None,
-                eux * nuux - de_a[1] * dl_a[1] - target if soft else None,
-                matrix=False,
-            )
-        else:
-            ddx, ddu, ds, dl, de = directions(
-                slx * llx - mu, sux * lux - mu, slu * llu - mu, suu * luu - mu,
-                elx * nulx - mu if soft else None,
-                eux * nuux - mu if soft else None,
-            )
-
-        a_p, a_d = steps(ds, dl, de, tau)
-
-        dx_s[...] = dx + a_p[None, None, :] * ddx
-        du_s[...] = du + a_p[None, None, :] * ddu
-        slx_s[...] = slx + a_p[None, None, :] * ds[0]
-        sux_s[...] = sux + a_p[None, None, :] * ds[1]
-        slu_s[...] = slu + a_p[None, None, :] * ds[2]
-        suu_s[...] = suu + a_p[None, None, :] * ds[3]
-        llx_s[...] = llx + a_d[None, None, :] * dl[0]
-        lux_s[...] = lux + a_d[None, None, :] * dl[1]
-        llu_s[...] = llu + a_d[None, None, :] * dl[2]
-        luu_s[...] = luu + a_d[None, None, :] * dl[3]
-        if soft:
-            elx_s[...] = elx + a_p[None, None, :] * de[0]
-            eux_s[...] = eux + a_p[None, None, :] * de[1]
-            nulx_s[...] = nulx - a_d[None, None, :] * dl[0]
-            nuux_s[...] = nuux - a_d[None, None, :] * dl[1]
-
-        gap = gap_of(
-            (slx_s[...], sux_s[...], slu_s[...], suu_s[...]),
-            (llx_s[...], lux_s[...], llu_s[...], luu_s[...]),
-            (elx_s[...], eux_s[...]) if soft else (None, None),
-            (nulx_s[...], nuux_s[...]) if soft else (None, None),
-        )
-        # Same per-lane validity floor as the Mehrotra target (soft mode).
-        return jnp.maximum(sigma * gap, 1e-8 if soft else 1e-12)
-
-    if adaptive_tol is None:
-        mu = jax.lax.fori_loop(
-            0, n_ip, lambda it, mu: ip_iter_body(mu), jnp.full((L,), mu0, f32)
-        )
-    else:
-        # Adaptive exit: once every lane's centering parameter is below the
-        # tolerance, remaining iterations are predicated away (pl.when skips the
-        # whole Newton step). n_ip stays the hard cap.
-        mu_s[0, :] = jnp.full((L,), mu0, f32)
-
-        def ip_iter_adaptive(it, _):
-            mu = mu_s[0, :]
-            active = jnp.logical_not(jnp.all(mu <= adaptive_tol))
-
-            @pl.when(active)
-            def _():
-                mu_s[0, :] = ip_iter_body(mu)
-
-            return 0
-
-        jax.lax.fori_loop(0, n_ip, ip_iter_adaptive, 0)
-    dx_out[...] = dx_s[...]
-    du_out[...] = du_s[...]
-    # Final per-lane complementarity gap (solve-quality diagnostic).
-    gap_final = (
-        jnp.sum((slx_s[...] * llx_s[...]).reshape(-1, L), axis=0)
-        + jnp.sum((sux_s[...] * lux_s[...]).reshape(-1, L), axis=0)
-        + jnp.sum((slu_s[...] * llu_s[...]).reshape(-1, L), axis=0)
-        + jnp.sum((suu_s[...] * luu_s[...]).reshape(-1, L), axis=0)
-    )
-    if soft:
-        gap_final = gap_final + jnp.sum(
-            (elx_s[...] * nulx_s[...]).reshape(-1, L), axis=0
-        ) + jnp.sum((eux_s[...] * nuux_s[...]).reshape(-1, L), axis=0)
-    gap_out[0, :] = gap_final / m_total
-
-
-def _ip_kernel_body_streamed(
-    n_ip: int, mu0: float, sigma: float, tau: float, adaptive_tol, mehrotra: bool,
-    soft_rho, C: int,
-    # refs: qp data — A/B live in HBM (ANY) and are DMA-streamed per chunk
-    A_hbm, B_hbm, r_ref, qdiag_ref, qx_ref, rdiag_ref, ru_ref,
-    lx_ref, ux_ref, lu_ref, uu_ref,
-    # outputs
-    dx_out, du_out, gap_out,
-    # scratch (fixed part; mehrotra adds ddxa_s/ddua_s before the DMA buffers;
-    # soft_rho adds elx/eux/nulx/nuux after them)
-    *scratch,
-):
-    """Same IP algorithm as `_ip_kernel_body`, reorganized for a long-horizon
-    VMEM budget. Two rules shape everything here:
-
-    1. A/B never reside: each Riccati sweep / rollout consumes them through
-       double-buffered C-stage DMA chunks from HBM.
-    2. No full-horizon temporaries: every elementwise phase (complementarity
-       corrections, qhat/rhat staging, step-length mins, state update, gap) is
-       a fori_loop over stages holding only (nx|nu, L)-sized values. The
-       resident kernel's whole-array expressions cost it ~0.36 MB of scoped
-       VMEM *per stage* (measured 36.45M at T=100 vs the 16M core limit);
-       here the corrections are recomputed per stage from the resident state
-       instead of stored — a few extra VPU FLOPs against ~20 MB of stack.
-    """
-    (
-        dx_s, du_s, slx_s, sux_s, slu_s, suu_s, llx_s, lux_s, llu_s, luu_s,
-        K_s, kff_s, rdyn_s, mu_s, ddx_s, ddu_s,
-    ) = scratch[:16]
-    soft = soft_rho is not None
-    rest = list(scratch[16:])
-    if mehrotra:
-        ddxa_s, ddua_s = rest[:2]
-        rest = rest[2:]
-    else:
-        ddxa_s = ddua_s = None
-    Abuf, Bbuf, dma_sem = rest[:3]
-    if soft:
-        elx_s, eux_s, nulx_s, nuux_s = rest[3:]
-    else:
-        elx_s = eux_s = nulx_s = nuux_s = None
-
-    T = r_ref.shape[0]
-    nx = r_ref.shape[1]
-    nu = rdiag_ref.shape[1]
-    L = r_ref.shape[2]
-    n_chunks = T // C
-    f32 = jnp.float32
-
-    # ---- DMA plumbing: double-buffered chunks of C stages of (A, B) ----
-    def _ab_copies(slot, ci):
-        a = pltpu.make_async_copy(
-            A_hbm.at[pl.ds(ci * C, C)], Abuf.at[slot], dma_sem.at[slot, 0]
-        )
-        b = pltpu.make_async_copy(
-            B_hbm.at[pl.ds(ci * C, C)], Bbuf.at[slot], dma_sem.at[slot, 1]
-        )
-        return a, b
-
-    def start_ab(slot, ci):
-        a, b = _ab_copies(slot, ci)
-        a.start()
-        b.start()
-
-    def wait_ab(slot, ci):
-        a, b = _ab_copies(slot, ci)
-        a.wait()
-        b.wait()
-
-    # ---- init (identical to the resident kernel) ----
-    s_min = 1e-2
-    dx_s[...] = jnp.zeros((T + 1, nx, L), f32)
-    du_s[...] = jnp.zeros((T, nu, L), f32)
-    if soft:
-        # Bounded-multiplier L1-soft state bounds (ops/boxqp.py): s = dx+e-lx,
-        # lam in (0, rho), extra pair e*nu = mu with nu = rho - lam explicit.
-        elx_s[...] = jnp.full((T + 1, nx, L), s_min, f32)
-        eux_s[...] = jnp.full((T + 1, nx, L), s_min, f32)
-        slx_s[...] = jnp.maximum(s_min - lx_ref[...], s_min)
-        sux_s[...] = jnp.maximum(ux_ref[...] + s_min, s_min)
-        llx_s[...] = jnp.minimum(mu0 / slx_s[...], 0.49 * soft_rho)
-        lux_s[...] = jnp.minimum(mu0 / sux_s[...], 0.49 * soft_rho)
-        nulx_s[...] = soft_rho - llx_s[...]
-        nuux_s[...] = soft_rho - lux_s[...]
-    else:
-        slx_s[...] = jnp.maximum(-lx_ref[...], s_min)
-        sux_s[...] = jnp.maximum(ux_ref[...], s_min)
-        llx_s[...] = mu0 / slx_s[...]
-        lux_s[...] = mu0 / sux_s[...]
-    slu_s[...] = jnp.maximum(-lu_ref[...], s_min)
-    suu_s[...] = jnp.maximum(uu_ref[...], s_min)
-    llu_s[...] = mu0 / slu_s[...]
-    luu_s[...] = mu0 / suu_s[...]
-    m_total = 2.0 * ((T + 1) * nx + T * nu) + (2.0 * (T + 1) * nx if soft else 0.0)
-
-    eye_x = jnp.eye(nx, dtype=f32)[:, :, None]
-    eye_u = jnp.eye(nu, dtype=f32)[:, :, None]
-
-    def ratio(v, d, t):
-        return jnp.where(d < 0, -t * v / jnp.minimum(d, -1e-30), jnp.inf)
-
-    # ---- per-stage slack/dual algebra (x-type: stage k in 0..T) ----
-    # Each helper returns only (nx|nu, L) values; nothing horizon-sized.
-
-    def x_parts(k):
-        slx_k, sux_k = slx_s[k], sux_s[k]
-        llx_k, lux_k = llx_s[k], lux_s[k]
-        if soft:
-            elx_k, eux_k = elx_s[k], eux_s[k]
-            nlx_k, nux_k = nulx_s[k], nuux_s[k]
-            r_sl = dx_s[k] + elx_k - lx_ref[k] - slx_k
-            r_su = ux_ref[k] + eux_k - dx_s[k] - sux_k
-            return (slx_k, sux_k, llx_k, lux_k, r_sl, r_su,
-                    elx_k, eux_k, nlx_k, nux_k)
-        r_sl = dx_s[k] - lx_ref[k] - slx_k
-        r_su = ux_ref[k] - dx_s[k] - sux_k
-        return slx_k, sux_k, llx_k, lux_k, r_sl, r_su
-
-    def x_weights(parts):
-        """Barrier weights of the (possibly soft) state bounds at one stage.
-        Soft: fused w = lam*nu/den, den = s*nu + e*lam >= 2*mu, capped at 1e6
-        via the denominator (see the resident kernel / ops/boxqp.py)."""
-        s_l, s_u, l_l, l_u = parts[:4]
-        if soft:
-            e_l, e_u, n_l, n_u = parts[6:10]
-            den_l = jnp.maximum(s_l * n_l + e_l * l_l, l_l * n_l * 1e-6)
-            den_u = jnp.maximum(s_u * n_u + e_u * l_u, l_u * n_u * 1e-6)
-            return l_l * n_l / den_l, l_u * n_u / den_u, den_l, den_u
-        return l_l / s_l, l_u / s_u, None, None
-
-    def u_parts(k):
-        slu_k, suu_k = slu_s[k], suu_s[k]
-        llu_k, luu_k = llu_s[k], luu_s[k]
-        r_sl = du_s[k] - lu_ref[k] - slu_k
-        r_su = uu_ref[k] - du_s[k] - suu_k
-        return slu_k, suu_k, llu_k, luu_k, r_sl, r_su
-
-    def rc_pair(parts, dda_k, mode, mu, target):
-        """Complementarity corrections (lower, upper) at one stage.
-        mode: 'fixed' (sigma-centering), 'affine', 'corrector' (Mehrotra, needs
-        dda_k = the stage's affine direction to rebuild ds_a/dl_a)."""
-        s_l, s_u, l_l, l_u, r_sl, r_su = parts
-        c_l = s_l * l_l
-        c_u = s_u * l_u
-        if mode == "fixed":
-            return c_l - mu[None, :], c_u - mu[None, :]
-        if mode == "corrector":
-            ds_l = dda_k + r_sl
-            ds_u = r_su - dda_k
-            dl_l = -(s_l * l_l + l_l * ds_l) / s_l
-            dl_u = -(s_u * l_u + l_u * ds_u) / s_u
-            return (
-                c_l + ds_l * dl_l - target[None, :],
-                c_u + ds_u * dl_u - target[None, :],
-            )
-        return c_l, c_u  # affine
-
-    def corr_of(parts, rc_l, rc_u):
-        s_l, s_u, l_l, l_u, r_sl, r_su = parts
-        return (rc_l + l_l * r_sl) / s_l - (rc_u + l_u * r_su) / s_u
-
-    def dsdl_of(parts, rc_l, rc_u, dd_k):
-        s_l, s_u, l_l, l_u, r_sl, r_su = parts
-        ds_l = dd_k + r_sl
-        ds_u = r_su - dd_k
-        dl_l = -(rc_l + l_l * ds_l) / s_l
-        dl_u = -(rc_u + l_u * ds_u) / s_u
-        return ds_l, ds_u, dl_l, dl_u
-
-    # ---- x-type (possibly soft) per-stage algebra; u-type stays hard ----
-
-    def x_cg(parts, rc):
-        """Fused complementarity gradients cg = w*(r_s + r_c/lam - r_e/nu),
-        computed over den so no division by a possibly-underflowed lam/nu."""
-        s_l, s_u, l_l, l_u, r_sl, r_su, e_l, e_u, n_l, n_u = parts
-        rc_l, rc_u, re_l, re_u = rc
-        _, _, den_l, den_u = x_weights(parts)
-        cg_l = (l_l * n_l * r_sl + n_l * rc_l - l_l * re_l) / den_l
-        cg_u = (l_u * n_u * r_su + n_u * rc_u - l_u * re_u) / den_u
-        return cg_l, cg_u
-
-    def x_dsdl(parts, rc, dd_k):
-        """Direction components of the state-bound block given the state-space
-        direction dd_k. Hard: (ds_l, ds_u, dl_l, dl_u, None, None); soft adds
-        (de_l, de_u) and derives dl from the fused weights."""
-        if not soft:
-            return dsdl_of(parts, rc[0], rc[1], dd_k) + (None, None)
-        w_l, w_u, _, _ = x_weights(parts)
-        cg_l, cg_u = x_cg(parts, rc)
-        e_l, e_u, n_l, n_u = parts[6:10]
-        r_sl, r_su = parts[4:6]
-        re_l, re_u = rc[2:]
-        dl_l = -(w_l * dd_k + cg_l)
-        dl_u = w_u * dd_k - cg_u
-        de_l = (-re_l + e_l * dl_l) / n_l
-        de_u = (-re_u + e_u * dl_u) / n_u
-        ds_l = dd_k + de_l + r_sl
-        ds_u = -dd_k + de_u + r_su
-        return ds_l, ds_u, dl_l, dl_u, de_l, de_u
-
-    def x_rc(parts, dda_k, mode, mu, target):
-        """Complementarity correction residuals of the state bounds: a 2-tuple
-        (hard) or 4-tuple with the e*nu pairs (soft)."""
-        if not soft:
-            return rc_pair(parts, dda_k, mode, mu, target)
-        s_l, s_u, l_l, l_u = parts[:4]
-        e_l, e_u, n_l, n_u = parts[6:10]
-        c_l, c_u = s_l * l_l, s_u * l_u
-        ce_l, ce_u = e_l * n_l, e_u * n_u
-        affine = (c_l, c_u, ce_l, ce_u)
-        if mode == "fixed":
-            m = mu[None, :]
-            return c_l - m, c_u - m, ce_l - m, ce_u - m
-        if mode == "corrector":
-            ds_l, ds_u, dl_l, dl_u, de_l, de_u = x_dsdl(parts, affine, dda_k)
-            t = target[None, :]
-            # d(e)*d(nu) = -de_aff * dlam_aff for the soft pairs.
-            return (
-                c_l + ds_l * dl_l - t,
-                c_u + ds_u * dl_u - t,
-                ce_l - de_l * dl_l - t,
-                ce_u - de_u * dl_u - t,
-            )
-        return affine
-
-    def x_corr_sig(k, mode, mu, target):
-        parts = x_parts(k)
-        dda_k = ddxa_s[k] if mode == "corrector" else None
-        rc = x_rc(parts, dda_k, mode, mu, target)
-        if soft:
-            cg_l, cg_u = x_cg(parts, rc)
-            corr = cg_l - cg_u
-        else:
-            corr = corr_of(parts, rc[0], rc[1])
-        w_l, w_u, _, _ = x_weights(parts)
-        sig = w_l + w_u
-        return corr, sig
-
-    def u_corr_sig(k, mode, mu, target):
-        parts = u_parts(k)
-        dda_k = ddua_s[k] if mode == "corrector" else None
-        rc_l, rc_u = rc_pair(parts, dda_k, mode, mu, target)
-        corr = corr_of(parts, rc_l, rc_u)
-        sig = parts[2] / parts[0] + parts[3] / parts[1]
-        return corr, sig
-
-    # ---- streamed Riccati sweep: corrections/qhat/sigma built per stage ----
-    def backward(mode, mu, target, compute_rdyn: bool):
-        start_ab(0, n_chunks - 1)
-        corr_T, sig_T = x_corr_sig(T, mode, mu, target)
-        P0 = eye_x * (qdiag_ref[T] + sig_T)[None, :, :]
-        p0 = qdiag_ref[T] * dx_s[T] + qx_ref[T] - llx_s[T] + lux_s[T] + corr_T
-
-        def chunk_body(i, Pp):
-            ci = n_chunks - 1 - i
-            slot = jax.lax.rem(i, 2)
-
-            @pl.when(ci > 0)
-            def _():
-                start_ab(1 - slot, ci - 1)
-
-            wait_ab(slot, ci)
-
-            def stage_body(j, Pp):
-                P, p = Pp
-                kk = C - 1 - j
-                k = ci * C + kk
-                Ak = Abuf[slot, kk]
-                Bk = Bbuf[slot, kk]
-                if compute_rdyn:
-                    rdyn_s[k] = (
-                        _mv(Ak, dx_s[k]) + _mv(Bk, du_s[k]) + r_ref[k] - dx_s[k + 1]
-                    )
-                corr_x, sig_x = x_corr_sig(k, mode, mu, target)
-                corr_u, sig_u = u_corr_sig(k, mode, mu, target)
-                qhat = qdiag_ref[k] * dx_s[k] + qx_ref[k] - llx_s[k] + lux_s[k] + corr_x
-                rhat = rdiag_ref[k] * du_s[k] + ru_ref[k] - llu_s[k] + luu_s[k] + corr_u
-                Fr_p = _mv(P, rdyn_s[k]) + p
-                AtP = _mm(_t(Ak), P)
-                BtP = _mm(_t(Bk), P)
-                Gxx = _mm(AtP, Ak) + eye_x * (qdiag_ref[k] + sig_x)[None, :, :]
-                Guu = _mm(BtP, Bk) + eye_u * (rdiag_ref[k] + sig_u)[None, :, :]
-                Gxu = _mm(AtP, Bk)
-                gx = qhat + _mv(_t(Ak), Fr_p)
-                gu = rhat + _mv(_t(Bk), Fr_p)
-                rhs = jnp.concatenate([_t(Gxu), gu[:, None, :]], axis=1)
-                sol = _chol4_solve(Guu, rhs)
-                K = -sol[:, :nx, :]
-                kff = -sol[:, nx, :]
-                K_s[k] = K
-                kff_s[k] = kff
-                P = Gxx + _mm(Gxu, K)
-                P = 0.5 * (P + _t(P))
-                p = gx + _mv(Gxu, kff)
-                return (P, p)
-
-            return jax.lax.fori_loop(0, C, stage_body, Pp)
-
-        jax.lax.fori_loop(0, n_chunks, chunk_body, (P0, p0))
-
-    def forward(ddx_ref, ddu_ref):
-        start_ab(0, 0)
-        ddx_ref[0] = jnp.zeros((nx, L), f32)
-
-        def chunk_body(ci, ddx_prev):
-            slot = jax.lax.rem(ci, 2)
-
-            @pl.when(ci < n_chunks - 1)
-            def _():
-                start_ab(1 - slot, ci + 1)
-
-            wait_ab(slot, ci)
-
-            def stage_body(kk, ddx_prev):
-                k = ci * C + kk
-                ddu = _mv(K_s[k], ddx_prev) + kff_s[k]
-                ddx_next = (
-                    _mv(Abuf[slot, kk], ddx_prev) + _mv(Bbuf[slot, kk], ddu) + rdyn_s[k]
-                )
-                ddu_ref[k] = ddu
-                ddx_ref[k + 1] = ddx_next
-                return ddx_next
-
-            return jax.lax.fori_loop(0, C, stage_body, ddx_prev)
-
-        jax.lax.fori_loop(0, n_chunks, chunk_body, jnp.zeros((nx, L), f32))
-
-    # ---- stage-looped elementwise phases (no horizon-sized temporaries) ----
-    def steps_pass(ddx_ref, ddu_ref, mode, mu, target, t):
-        """Fraction-to-boundary step lengths over all stages: running (L,) mins."""
-
-        def body(k, carry):
-            a_p, a_d = carry
-            px = x_parts(k)
-            dda_k = ddxa_s[k] if mode == "corrector" else None
-            rcx = x_rc(px, dda_k, mode, mu, target)
-            dsx = x_dsdl(px, rcx, ddx_ref[k])
-            a_p = jnp.minimum(a_p, jnp.min(ratio(px[0], dsx[0], t), axis=0))
-            a_p = jnp.minimum(a_p, jnp.min(ratio(px[1], dsx[1], t), axis=0))
-            a_d = jnp.minimum(a_d, jnp.min(ratio(px[2], dsx[2], t), axis=0))
-            a_d = jnp.minimum(a_d, jnp.min(ratio(px[3], dsx[3], t), axis=0))
-            if soft:
-                # e stays positive (primal); nu = rho - lam positive (dual).
-                a_p = jnp.minimum(a_p, jnp.min(ratio(px[6], dsx[4], t), axis=0))
-                a_p = jnp.minimum(a_p, jnp.min(ratio(px[7], dsx[5], t), axis=0))
-                a_d = jnp.minimum(a_d, jnp.min(ratio(px[8], -dsx[2], t), axis=0))
-                a_d = jnp.minimum(a_d, jnp.min(ratio(px[9], -dsx[3], t), axis=0))
-
-            ku = jnp.minimum(k, T - 1)
-            pu = u_parts(ku)
-            ddau_k = ddua_s[ku] if mode == "corrector" else None
-            rcu = rc_pair(pu, ddau_k, mode, mu, target)
-            dsu = dsdl_of(pu, *rcu, ddu_ref[ku])
-            in_range = k < T
-            big = jnp.full((L,), jnp.inf, f32)
-            a_p = jnp.minimum(a_p, jnp.where(in_range, jnp.min(ratio(pu[0], dsu[0], t), axis=0), big))
-            a_p = jnp.minimum(a_p, jnp.where(in_range, jnp.min(ratio(pu[1], dsu[1], t), axis=0), big))
-            a_d = jnp.minimum(a_d, jnp.where(in_range, jnp.min(ratio(pu[2], dsu[2], t), axis=0), big))
-            a_d = jnp.minimum(a_d, jnp.where(in_range, jnp.min(ratio(pu[3], dsu[3], t), axis=0), big))
-            return a_p, a_d
-
-        ones = jnp.ones((L,), f32)
-        return jax.lax.fori_loop(0, T + 1, body, (ones, ones))
-
-    def gap_pass():
-        """Current complementarity sum over all stages -> (L,)."""
-
-        def body(k, g):
-            g = g + jnp.sum(slx_s[k] * llx_s[k] + sux_s[k] * lux_s[k], axis=0)
-            if soft:
-                g = g + jnp.sum(
-                    elx_s[k] * nulx_s[k] + eux_s[k] * nuux_s[k], axis=0
-                )
-            ku = jnp.minimum(k, T - 1)
-            gu = jnp.sum(slu_s[ku] * llu_s[ku] + suu_s[ku] * luu_s[ku], axis=0)
-            return g + jnp.where(k < T, gu, 0.0)
-
-        return jax.lax.fori_loop(0, T + 1, body, jnp.zeros((L,), f32)) / m_total
-
-    def affine_gap_pass(ap_a, ad_a):
-        """Predicted complementarity after the affine step -> (L,)."""
-
-        def one(parts, rc, dd_k, ap, ad):
-            ds = dsdl_of(parts, *rc, dd_k)
-            return jnp.sum(
-                (parts[0] + ap * ds[0]) * (parts[2] + ad * ds[2])
-                + (parts[1] + ap * ds[1]) * (parts[3] + ad * ds[3]),
-                axis=0,
-            )
-
-        def body(k, g):
-            px = x_parts(k)
-            rcx = x_rc(px, None, "affine", None, None)
-            if soft:
-                ap, ad = ap_a[None, :], ad_a[None, :]
-                ds = x_dsdl(px, rcx, ddxa_s[k])
-                g = g + jnp.sum(
-                    (px[0] + ap * ds[0]) * (px[2] + ad * ds[2])
-                    + (px[1] + ap * ds[1]) * (px[3] + ad * ds[3])
-                    + (px[6] + ap * ds[4]) * (px[8] - ad * ds[2])
-                    + (px[7] + ap * ds[5]) * (px[9] - ad * ds[3]),
-                    axis=0,
-                )
-            else:
-                g = g + one(px, rcx, ddxa_s[k], ap_a[None, :], ad_a[None, :])
-            ku = jnp.minimum(k, T - 1)
-            pu = u_parts(ku)
-            rcu = rc_pair(pu, None, "affine", None, None)
-            gu = one(pu, rcu, ddua_s[ku], ap_a[None, :], ad_a[None, :])
-            return g + jnp.where(k < T, gu, 0.0)
-
-        return jax.lax.fori_loop(0, T + 1, body, jnp.zeros((L,), f32)) / m_total
-
-    def update_pass(mode, mu, target, a_p, a_d):
-        """Apply the step: per-stage recompute of ds/dl, then in-place update."""
-        ap = a_p[None, :]
-        ad = a_d[None, :]
-
-        def body(k, _):
-            px = x_parts(k)
-            dda_k = ddxa_s[k] if mode == "corrector" else None
-            rcx = x_rc(px, dda_k, mode, mu, target)
-            dsx = x_dsdl(px, rcx, ddx_s[k])
-            dx_s[k] = dx_s[k] + ap * ddx_s[k]
-            slx_s[k] = px[0] + ap * dsx[0]
-            sux_s[k] = px[1] + ap * dsx[1]
-            llx_s[k] = px[2] + ad * dsx[2]
-            lux_s[k] = px[3] + ad * dsx[3]
-            if soft:
-                elx_s[k] = px[6] + ap * dsx[4]
-                eux_s[k] = px[7] + ap * dsx[5]
-                nulx_s[k] = px[8] - ad * dsx[2]
-                nuux_s[k] = px[9] - ad * dsx[3]
-
-            @pl.when(k < T)
-            def _():
-                pu = u_parts(k)
-                ddau_k = ddua_s[k] if mode == "corrector" else None
-                rcu = rc_pair(pu, ddau_k, mode, mu, target)
-                dsu = dsdl_of(pu, *rcu, ddu_s[k])
-                du_s[k] = du_s[k] + ap * ddu_s[k]
-                slu_s[k] = pu[0] + ap * dsu[0]
-                suu_s[k] = pu[1] + ap * dsu[1]
-                llu_s[k] = pu[2] + ad * dsu[2]
-                luu_s[k] = pu[3] + ad * dsu[3]
-
-            return 0
-
-        jax.lax.fori_loop(0, T + 1, body, 0)
-
-    def ip_iter_body(mu):
-        if mehrotra:
-            gap_now = gap_pass()
-            backward("affine", None, None, compute_rdyn=True)
-            forward(ddxa_s, ddua_s)
-            ap_a, ad_a = steps_pass(ddxa_s, ddua_s, "affine", None, None, 1.0)
-            gap_aff = affine_gap_pass(ap_a, ad_a)
-            sig = jnp.clip((gap_aff / jnp.maximum(gap_now, 1e-16)) ** 3, 1e-4, 1.0)
-            # Soft mode: per-lane f32 validity floor (see the resident kernel).
-            target = jnp.maximum(sig * gap_now, 1e-8 if soft else 1e-14)
-            backward("corrector", None, target, compute_rdyn=False)
-            forward(ddx_s, ddu_s)
-            a_p, a_d = steps_pass(ddx_s, ddu_s, "corrector", None, target, tau)
-            update_pass("corrector", None, target, a_p, a_d)
-        else:
-            backward("fixed", mu, None, compute_rdyn=True)
-            forward(ddx_s, ddu_s)
-            a_p, a_d = steps_pass(ddx_s, ddu_s, "fixed", mu, None, tau)
-            update_pass("fixed", mu, None, a_p, a_d)
-        # Same per-lane f32 validity floor as the Mehrotra target (soft mode).
-        return jnp.maximum(sigma * gap_pass(), 1e-8 if soft else 1e-12)
-
-    if adaptive_tol is None:
-        jax.lax.fori_loop(
-            0, n_ip, lambda it, mu: ip_iter_body(mu), jnp.full((L,), mu0, f32)
-        )
-    else:
-        mu_s[0, :] = jnp.full((L,), mu0, f32)
-
-        def ip_iter_adaptive(it, _):
-            mu = mu_s[0, :]
-            active = jnp.logical_not(jnp.all(mu <= adaptive_tol))
-
-            @pl.when(active)
-            def _():
-                mu_s[0, :] = ip_iter_body(mu)
-
-            return 0
-
-        jax.lax.fori_loop(0, n_ip, ip_iter_adaptive, 0)
-    dx_out[...] = dx_s[...]
-    du_out[...] = du_s[...]
-    gap_out[0, :] = gap_pass()
-
-
-def _stream_chunk_size(T: int) -> int:
-    """Largest divisor of T ≤ 8 — the per-buffer stage count for A/B streaming.
-    Divisibility keeps every DMA the same static size (no ragged last chunk)."""
-    for c in range(min(8, T), 0, -1):
-        if T % c == 0:
+            sl = jnp.maximum(-lo, s_min)
+            su = jnp.maximum(hi, s_min)
+            nb = _Bound(None, lo, hi, sl, su, o.mu0 / sl, o.mu0 / su)
+        store(x_group, k, i, nb)
+        return g + _complementarity(nb)
+
+    def init_u(k, i, g):
+        lo, hi = lu[k, i], uu[k, i]
+        du[k, i] = zeros
+        sl = jnp.maximum(-lo, s_min)
+        su = jnp.maximum(hi, s_min)
+        nb = _Bound(None, lo, hi, sl, su, o.mu0 / sl, o.mu0 / su)
+        store(u_group, k, i, nb)
+        return g + _complementarity(nb)
+
+    gap0 = all_stages(init_x, init_u, zeros) / m_total
+
+    # ---- complementarity residuals of the three step kinds ----
+    def residual(rc_mode, shift, b, d_aff):
+        if rc_mode == "corrector":
+            return _rc_corrector(b, d_aff, shift)
+        rc = _rc_affine(b)
+        return _rc_shift(rc, shift) if rc_mode == "centered" else rc
+
+    def aff_dir(group, k, i):
+        """The stored affine direction of this variable (corrector only)."""
+        return (ddxa if group is x_group else ddua)[k, i]
+
+    def bound_rc(rc_mode, shift, group, k, i):
+        b = load(group, k, i)
+        d_aff = aff_dir(group, k, i) if rc_mode == "corrector" else None
+        return b, residual(rc_mode, shift, b, d_aff)
+
+    def stage_terms(rc_mode, shift, k, with_u=True):
+        """Newton RHS (qhat, rhat) and barrier diagonals (sgx, sgu) of stage k."""
+        def x_body(i, c):
+            b, rc = bound_rc(rc_mode, shift, x_group, k, i)
+            qh[i] = qdiag[k, i] * b.v + qx[k, i] - b.ll + b.lu + _correction(b, rc)
+            w_l, w_u, _, _ = _weights(b)
+            sgx[i] = w_l + w_u
             return c
-    return 1
 
+        def u_body(i, c):
+            b, rc = bound_rc(rc_mode, shift, u_group, k, i)
+            rh[i] = rdiag[k, i] * b.v + ru[k, i] - b.ll + b.lu + _correction(b, rc)
+            w_l, w_u, _, _ = _weights(b)
+            sgu[i] = w_l + w_u
+            return c
 
-def _ip_kernel_body_streamed2(
-    n_ip: int, mu0: float, sigma: float, tau: float, adaptive_tol, mehrotra: bool,
-    soft_rho, C: int,
-    # inputs streamed from HBM per C-stage chunk (stages 0..T-1 only; the
-    # terminal rows of the (T+1)-sized arrays arrive as separate VMEM refs so
-    # every chunk is the same static size)
-    A_hbm, B_hbm, r_hbm, qd_hbm, qx_hbm, rd_hbm, ru_hbm, lx_hbm, ux_hbm,
-    # inputs resident in VMEM (small)
-    lu_ref, uu_ref, qdT_ref, qxT_ref, lxT_ref, uxT_ref,
-    # outputs: dx/du/K live in HBM (ANY) — dx/du are DMA'd out once at the end,
-    # K is the backward->forward spill surface; gap stays VMEM
-    dx_out, du_out, K_any, gap_out,
-    # scratch (mehrotra appends ddxa_s/ddua_s; soft appends its four arrays)
-    *scratch,
-):
-    """Tier-2 streaming: the long-horizon kernel past the tier-1 cap (T=112).
+        over(nx, x_body, 0)
+        if with_u:
+            over(nu, u_body, 0)
 
-    Tier 1 (`_ip_kernel_body_streamed`) streams only A/B and walls at the
-    resident vector state (~134 KiB/stage incl. the read-only QP data and the
-    K gains). Here everything read-only (QP cost data, dynamics residual
-    offsets, state boxes) streams through double-buffered C-stage chunks in
-    every phase that touches it, and the feedback gains K — written by the
-    backward sweep, read by the rollout — spill to HBM through the same chunk
-    pipeline (Mosaic has no HBM scratch, so K rides an ANY-space output).
-    Resident per stage: the IP state vectors only (~68 KiB hard / ~92 KiB
-    soft with Mehrotra), lifting the lanes cap to T≈200 (hard) / 144 (soft).
+    # ---- one IP iteration, as passes over the stages ----
+    def dynamics_residual():
+        """rdyn_k = A_k dx_k + B_k du_k + r_k - dx_{k+1}."""
+        def row(k, i, c):
+            acc = r[k, i] - dx[k + 1, i]
+            for j in range(nx):
+                acc = acc + A[k, i, j] * dx[k, j]
+            for j in range(nu):
+                acc = acc + Bm[k, i, j] * du[k, j]
+            rdyn[k, i] = acc
+            return c
 
-    IP semantics identical to the other two kernels (verified in
-    tests/test_pallas_ocp.py against the ops/boxqp.py reference)."""
-    (
-        dx_s, du_s, slx_s, sux_s, slu_s, suu_s, llx_s, lux_s, llu_s, luu_s,
-        kff_s, rdyn_s, mu_s, ddx_s, ddu_s,
-        Abuf, Bbuf, rbuf, qdbuf, qxbuf, rdbuf, rubuf, lxbuf, uxbuf, Kbuf,
-        ab_sem, qpd_sem, bnd_sem, kout_sem, kin_sem, out_sem,
-    ) = scratch[:31]
-    soft = soft_rho is not None
-    rest = list(scratch[31:])
-    if mehrotra:
-        ddxa_s, ddua_s = rest[:2]
-        rest = rest[2:]
-    else:
-        ddxa_s = ddua_s = None
-    if soft:
-        elx_s, eux_s, nulx_s, nuux_s = rest
-    else:
-        elx_s = eux_s = nulx_s = nuux_s = None
+        fori(0, T, lambda k, c: over(nx, lambda i, c: row(k, i, c), c), 0)
 
-    T = rdyn_s.shape[0]
-    nx = rdyn_s.shape[1]
-    nu = du_s.shape[1]
-    L = rdyn_s.shape[2]
-    n_chunks = T // C
-    f32 = jnp.float32
+    def sweep_matrix(rc_mode, shift):
+        """Backward Riccati sweep that factorizes: stores K, kff and the
+        per-stage factor stores Pr = P_{k+1} rdyn_k, chol(Guu) and
+        Y = chol(Guu)^{-1} Gxu' (Y also forms P_k = A'PA + D - Y'Y; the
+        Mehrotra corrector reuses all three in its vector sweep)."""
+        stage_terms(rc_mode, shift, T, with_u=False)
 
-    # ---- DMA plumbing: three read groups + the K spill ----
-    def _group(pairs, sems, slot, ci):
-        return [
-            pltpu.make_async_copy(h.at[pl.ds(ci * C, C)], b.at[slot], sems.at[slot, i])
-            for i, (h, b) in enumerate(pairs)
-        ]
+        def init_row(i, c):
+            d = qdiag[T, i] + sgx[i]
+            for j in range(nx):
+                P[i, j] = jnp.where(i == j, d, zeros)
+            p[i] = qh[i]
+            return c
 
-    AB = lambda slot, ci: _group([(A_hbm, Abuf), (B_hbm, Bbuf)], ab_sem, slot, ci)
-    QPD = lambda slot, ci: _group(
-        [(r_hbm, rbuf), (qd_hbm, qdbuf), (qx_hbm, qxbuf), (rd_hbm, rdbuf),
-         (ru_hbm, rubuf)],
-        qpd_sem, slot, ci,
-    )
-    BND = lambda slot, ci: _group([(lx_hbm, lxbuf), (ux_hbm, uxbuf)], bnd_sem, slot, ci)
+        over(nx, init_row, 0)
 
-    def start(cps):
-        for c in cps:
-            c.start()
+        def stage(k):
+            stage_terms(rc_mode, shift, k)
 
-    def wait(cps):
-        for c in cps:
-            c.wait()
+            def pr_row(i, c):
+                acc = zeros
+                for j in range(nx):
+                    acc = acc + P[i, j] * rdyn[k, j]
+                Pr[k, i] = acc
+                frp[i] = acc + p[i]
+                for cc in range(nu):
+                    pb = zeros
+                    for j in range(nx):
+                        pb = pb + P[i, j] * Bm[k, j, cc]
+                    PB[i, cc] = pb
+                return c
 
-    def k_out(slot, ci):
-        return pltpu.make_async_copy(
-            Kbuf.at[slot], K_any.at[pl.ds(ci * C, C)], kout_sem.at[slot]
-        )
+            over(nx, pr_row, 0)
 
-    def k_in(slot, ci):
-        return pltpu.make_async_copy(
-            K_any.at[pl.ds(ci * C, C)], Kbuf.at[slot], kin_sem.at[slot]
-        )
+            def guu_row(i, c):
+                guu, gu = c
+                brow = [Bm[k, i, cc] for cc in range(nu)]
+                pbrow = [PB[i, cc] for cc in range(nu)]
+                f = frp[i]
+                guu = {cd: guu[cd] + brow[cd[0]] * pbrow[cd[1]] for cd in guu}
+                gu = [gu[cc] + brow[cc] * f for cc in range(nu)]
+                return guu, gu
 
-    # ---- init: dx = du = 0, slacks clipped to the interior, duals mu0/s ----
-    s_min = 1e-2
-    dx_s[...] = jnp.zeros((T + 1, nx, L), f32)
-    du_s[...] = jnp.zeros((T, nu, L), f32)
-    slu_s[...] = jnp.maximum(-lu_ref[...], s_min)
-    suu_s[...] = jnp.maximum(uu_ref[...], s_min)
-    llu_s[...] = mu0 / slu_s[...]
-    luu_s[...] = mu0 / suu_s[...]
+            guu, gu = over(nx, guu_row, ({cd: zeros for cd in _tril(nu)}, [zeros] * nu))
+            for cc in range(nu):
+                guu[(cc, cc)] = guu[(cc, cc)] + rdiag[k, cc] + sgu[cc]
+            gu = [gu[cc] + rh[cc] for cc in range(nu)]
+            Lc = _chol(guu, nu)
+            for n_, cd in enumerate(_tril(nu)):
+                Lf[k, n_] = Lc[cd]
+            z = _solve_lower(Lc, gu)
+            kf = _solve_upper(Lc, z)
+            for cc in range(nu):
+                kff[k, cc] = -kf[cc]
 
-    def init_x(k, lx_k, ux_k):
-        if soft:
-            # Bounded-multiplier L1-soft state bounds (ops/boxqp.py).
-            elx_s[k] = jnp.full((nx, L), s_min, f32)
-            eux_s[k] = jnp.full((nx, L), s_min, f32)
-            slx_s[k] = jnp.maximum(s_min - lx_k, s_min)
-            sux_s[k] = jnp.maximum(ux_k + s_min, s_min)
-            llx_s[k] = jnp.minimum(mu0 / slx_s[k], 0.49 * soft_rho)
-            lux_s[k] = jnp.minimum(mu0 / sux_s[k], 0.49 * soft_rho)
-            nulx_s[k] = soft_rho - llx_s[k]
-            nuux_s[k] = soft_rho - lux_s[k]
-        else:
-            slx_s[k] = jnp.maximum(-lx_k, s_min)
-            sux_s[k] = jnp.maximum(ux_k, s_min)
-            llx_s[k] = mu0 / slx_s[k]
-            lux_s[k] = mu0 / sux_s[k]
+            def gxu_row(i, c):
+                # Gxu row i = (A' P B)[i], Y[:, i] = L^{-1} Gxu[i]',
+                # K[:, i] = -L^{-T} Y[:, i], p_k[i] = gx[i] - Y[:, i]'z.
+                gxu = [zeros] * nu
+                gx = qh[i]
+                for j in range(nx):
+                    a = A[k, j, i]
+                    gxu = [gxu[cc] + a * PB[j, cc] for cc in range(nu)]
+                    gx = gx + a * frp[j]
+                yi = _solve_lower(Lc, gxu)
+                ki = _solve_upper(Lc, yi)
+                pn = gx
+                for cc in range(nu):
+                    Y[k, cc, i] = yi[cc]
+                    K[k, cc, i] = -ki[cc]
+                    pn = pn - yi[cc] * z[cc]
+                p[i] = pn
+                return c
 
-    m_total = 2.0 * ((T + 1) * nx + T * nu) + (2.0 * (T + 1) * nx if soft else 0.0)
+            over(nx, gxu_row, 0)
 
-    eye_x = jnp.eye(nx, dtype=f32)[:, :, None]
-    eye_u = jnp.eye(nu, dtype=f32)[:, :, None]
+            def pa_entry(l_, j, c):
+                acc = zeros
+                for m in range(nx):
+                    acc = acc + P[l_, m] * A[k, m, j]
+                PA[l_, j] = acc
+                return c
 
-    def ratio(v, d, t):
-        return jnp.where(d < 0, -t * v / jnp.minimum(d, -1e-30), jnp.inf)
+            over(nx, lambda l_, c: over(nx, lambda j, c: pa_entry(l_, j, c), c), 0)
 
-    # ---- per-stage slack/dual algebra; bounds arrive as chunk values ----
-    def x_parts(k, lx_k, ux_k):
-        slx_k, sux_k = slx_s[k], sux_s[k]
-        llx_k, lux_k = llx_s[k], lux_s[k]
-        if soft:
-            elx_k, eux_k = elx_s[k], eux_s[k]
-            nlx_k, nux_k = nulx_s[k], nuux_s[k]
-            r_sl = dx_s[k] + elx_k - lx_k - slx_k
-            r_su = ux_k + eux_k - dx_s[k] - sux_k
-            return (slx_k, sux_k, llx_k, lux_k, r_sl, r_su,
-                    elx_k, eux_k, nlx_k, nux_k)
-        r_sl = dx_s[k] - lx_k - slx_k
-        r_su = ux_k - dx_s[k] - sux_k
-        return slx_k, sux_k, llx_k, lux_k, r_sl, r_su
+            def p_entry(i, j, c):
+                acc = jnp.where(i == j, qdiag[k, i] + sgx[i], zeros)
+                for l_ in range(nx):
+                    acc = acc + A[k, l_, i] * PA[l_, j]
+                for cc in range(nu):
+                    acc = acc - Y[k, cc, i] * Y[k, cc, j]
+                P[i, j] = acc
+                return c
 
-    def x_weights(parts):
-        s_l, s_u, l_l, l_u = parts[:4]
-        if soft:
-            e_l, e_u, n_l, n_u = parts[6:10]
-            den_l = jnp.maximum(s_l * n_l + e_l * l_l, l_l * n_l * 1e-6)
-            den_u = jnp.maximum(s_u * n_u + e_u * l_u, l_u * n_u * 1e-6)
-            return l_l * n_l / den_l, l_u * n_u / den_u, den_l, den_u
-        return l_l / s_l, l_u / s_u, None, None
+            over(nx, lambda i, c: over(nx, lambda j, c: p_entry(i, j, c), c), 0)
 
-    def u_parts(k):
-        slu_k, suu_k = slu_s[k], suu_s[k]
-        llu_k, luu_k = llu_s[k], luu_s[k]
-        r_sl = du_s[k] - lu_ref[k] - slu_k
-        r_su = uu_ref[k] - du_s[k] - suu_k
-        return slu_k, suu_k, llu_k, luu_k, r_sl, r_su
+        backward(stage)
 
-    def rc_pair(parts, dda_k, mode, mu, target):
-        s_l, s_u, l_l, l_u, r_sl, r_su = parts
-        c_l = s_l * l_l
-        c_u = s_u * l_u
-        if mode == "fixed":
-            return c_l - mu[None, :], c_u - mu[None, :]
-        if mode == "corrector":
-            ds_l = dda_k + r_sl
-            ds_u = r_su - dda_k
-            dl_l = -(s_l * l_l + l_l * ds_l) / s_l
-            dl_u = -(s_u * l_u + l_u * ds_u) / s_u
-            return (
-                c_l + ds_l * dl_l - target[None, :],
-                c_u + ds_u * dl_u - target[None, :],
-            )
-        return c_l, c_u  # affine
+    def sweep_vector(rc_mode, shift):
+        """Corrector sweep: same KKT matrix as the affine predictor, so only the
+        vector recursion runs, over the stored factors (factorize once)."""
+        stage_terms(rc_mode, shift, T, with_u=False)
 
-    def corr_of(parts, rc_l, rc_u):
-        s_l, s_u, l_l, l_u, r_sl, r_su = parts
-        return (rc_l + l_l * r_sl) / s_l - (rc_u + l_u * r_su) / s_u
+        def init_row(i, c):
+            p[i] = qh[i]
+            return c
 
-    def dsdl_of(parts, rc_l, rc_u, dd_k):
-        s_l, s_u, l_l, l_u, r_sl, r_su = parts
-        ds_l = dd_k + r_sl
-        ds_u = r_su - dd_k
-        dl_l = -(rc_l + l_l * ds_l) / s_l
-        dl_u = -(rc_u + l_u * ds_u) / s_u
-        return ds_l, ds_u, dl_l, dl_u
+        over(nx, init_row, 0)
 
-    def x_cg(parts, rc):
-        s_l, s_u, l_l, l_u, r_sl, r_su, e_l, e_u, n_l, n_u = parts
-        rc_l, rc_u, re_l, re_u = rc
-        _, _, den_l, den_u = x_weights(parts)
-        cg_l = (l_l * n_l * r_sl + n_l * rc_l - l_l * re_l) / den_l
-        cg_u = (l_u * n_u * r_su + n_u * rc_u - l_u * re_u) / den_u
-        return cg_l, cg_u
+        def stage(k):
+            stage_terms(rc_mode, shift, k)
 
-    def x_dsdl(parts, rc, dd_k):
-        if not soft:
-            return dsdl_of(parts, rc[0], rc[1], dd_k) + (None, None)
-        w_l, w_u, _, _ = x_weights(parts)
-        cg_l, cg_u = x_cg(parts, rc)
-        e_l, e_u, n_l, n_u = parts[6:10]
-        r_sl, r_su = parts[4:6]
-        re_l, re_u = rc[2:]
-        dl_l = -(w_l * dd_k + cg_l)
-        dl_u = w_u * dd_k - cg_u
-        de_l = (-re_l + e_l * dl_l) / n_l
-        de_u = (-re_u + e_u * dl_u) / n_u
-        ds_l = dd_k + de_l + r_sl
-        ds_u = -dd_k + de_u + r_su
-        return ds_l, ds_u, dl_l, dl_u, de_l, de_u
+            def gu_row(i, gu):
+                f = Pr[k, i] + p[i]
+                frp[i] = f
+                return [gu[cc] + Bm[k, i, cc] * f for cc in range(nu)]
 
-    def x_rc(parts, dda_k, mode, mu, target):
-        if not soft:
-            return rc_pair(parts, dda_k, mode, mu, target)
-        s_l, s_u, l_l, l_u = parts[:4]
-        e_l, e_u, n_l, n_u = parts[6:10]
-        c_l, c_u = s_l * l_l, s_u * l_u
-        ce_l, ce_u = e_l * n_l, e_u * n_u
-        affine = (c_l, c_u, ce_l, ce_u)
-        if mode == "fixed":
-            m = mu[None, :]
-            return c_l - m, c_u - m, ce_l - m, ce_u - m
-        if mode == "corrector":
-            ds_l, ds_u, dl_l, dl_u, de_l, de_u = x_dsdl(parts, affine, dda_k)
-            t = target[None, :]
-            return (
-                c_l + ds_l * dl_l - t,
-                c_u + ds_u * dl_u - t,
-                ce_l - de_l * dl_l - t,
-                ce_u - de_u * dl_u - t,
-            )
-        return affine
+            gu = over(nx, gu_row, [zeros] * nu)
+            gu = [gu[cc] + rh[cc] for cc in range(nu)]
+            Lc = {cd: Lf[k, n_] for n_, cd in enumerate(_tril(nu))}
+            z = _solve_lower(Lc, gu)
+            kf = _solve_upper(Lc, z)
+            for cc in range(nu):
+                kff[k, cc] = -kf[cc]
 
-    def x_corr_sig(k, lx_k, ux_k, mode, mu, target):
-        parts = x_parts(k, lx_k, ux_k)
-        dda_k = ddxa_s[k] if mode == "corrector" else None
-        rc = x_rc(parts, dda_k, mode, mu, target)
-        if soft:
-            cg_l, cg_u = x_cg(parts, rc)
-            corr = cg_l - cg_u
-        else:
-            corr = corr_of(parts, rc[0], rc[1])
-        w_l, w_u, _, _ = x_weights(parts)
-        sig = w_l + w_u
-        return corr, sig
+            def p_row(i, c):
+                acc = qh[i]
+                for j in range(nx):
+                    acc = acc + A[k, j, i] * frp[j]
+                for cc in range(nu):
+                    acc = acc - Y[k, cc, i] * z[cc]
+                p[i] = acc
+                return c
 
-    def u_corr_sig(k, mode, mu, target):
-        parts = u_parts(k)
-        dda_k = ddua_s[k] if mode == "corrector" else None
-        rc_l, rc_u = rc_pair(parts, dda_k, mode, mu, target)
-        corr = corr_of(parts, rc_l, rc_u)
-        sig = parts[2] / parts[0] + parts[3] / parts[1]
-        return corr, sig
+            over(nx, p_row, 0)
 
-    # ---- generic forward chunk loop over the state-bound stream ----
-    # body(k, lx_k, ux_k, carry) runs for stages 0..T-1 with the chunked bound
-    # values; the caller handles the terminal stage with lxT/uxT afterwards.
-    def bnd_loop(body, carry0):
-        start(BND(0, 0))
+        backward(stage)
 
-        def chunk_body(ci, carry):
-            slot = jax.lax.rem(ci, 2)
+    def rollout(rc_mode, shift, out_x, out_u, t):
+        """Forward rollout of the Newton step into (out_x, out_u), folding the
+        fraction-to-boundary limits of every variable into per-scenario
+        (a_p, a_d)."""
+        def lim(group, out):
+            def body(k, i, a):
+                b, rc = bound_rc(rc_mode, shift, group, k, i)
+                return _step_limits(b, _directions(b, out[k, i], rc), t, *a)
+            return body
 
-            @pl.when(ci < n_chunks - 1)
-            def _():
-                start(BND(1 - slot, ci + 1))
+        def zero_row(i, c):
+            out_x[0, i] = zeros
+            return c
 
-            wait(BND(slot, ci))
+        over(nx, zero_row, 0)
 
-            def stage_body(kk, carry):
-                k = ci * C + kk
-                return body(k, lxbuf[slot, kk], uxbuf[slot, kk], carry)
+        def stage(k, a):
+            def u_row(c_, c):
+                acc = kff[k, c_]
+                for i in range(nx):
+                    acc = acc + K[k, c_, i] * out_x[k, i]
+                out_u[k, c_] = acc
+                return c
 
-            return jax.lax.fori_loop(0, C, stage_body, carry)
+            over(nu, u_row, 0)
 
-        return jax.lax.fori_loop(0, n_chunks, chunk_body, carry0)
+            def x_row(i, c):
+                acc = rdyn[k, i]
+                for j in range(nx):
+                    acc = acc + A[k, i, j] * out_x[k, j]
+                for cc in range(nu):
+                    acc = acc + Bm[k, i, cc] * out_u[k, cc]
+                out_x[k + 1, i] = acc
+                return c
 
-    # ---- initialization of the x-type slacks/duals (streamed bounds) ----
-    def init_body(k, lx_k, ux_k, c):
-        init_x(k, lx_k, ux_k)
-        return c
+            over(nx, x_row, 0)
+            return x_and_u(k, lim(x_group, out_x), lim(u_group, out_u), a)
 
-    bnd_loop(init_body, 0)
-    init_x(T, lxT_ref[...], uxT_ref[...])
+        one = jnp.ones((S,), f32)
+        a = fori(0, T, stage, (one, one))
+        return over(nx, lambda i, a: lim(x_group, out_x)(T, i, a), a)
 
-    # ---- streamed backward Riccati sweep (all three read groups + K spill) --
-    def backward(mode, mu, target, compute_rdyn: bool):
-        start(AB(0, n_chunks - 1))
-        start(QPD(0, n_chunks - 1))
-        start(BND(0, n_chunks - 1))
-        corr_T, sig_T = x_corr_sig(
-            T, lxT_ref[...], uxT_ref[...], mode, mu, target
-        )
-        P0 = eye_x * (qdT_ref[...] + sig_T)[None, :, :]
-        p0 = qdT_ref[...] * dx_s[T] + qxT_ref[...] - llx_s[T] + lux_s[T] + corr_T
+    def affine_gap(a_p, a_d):
+        """Mean complementarity after the affine step (Mehrotra's predictor)."""
+        def body(group, dref):
+            def f(k, i, g):
+                b = load(group, k, i)
+                dirs = _directions(b, dref[k, i], _rc_affine(b))
+                return g + _complementarity_after(b, dirs, a_p, a_d)
+            return f
 
-        def chunk_body(i, Pp):
-            ci = n_chunks - 1 - i
-            slot = jax.lax.rem(i, 2)
+        return all_stages(body(x_group, ddxa), body(u_group, ddua), zeros) / m_total
 
-            @pl.when(ci > 0)
-            def _():
-                start(AB(1 - slot, ci - 1))
-                start(QPD(1 - slot, ci - 1))
-                start(BND(1 - slot, ci - 1))
-
-            # The K chunk buffer for this slot was last used two chunks ago
-            # (ci + 2); its spill-out DMA must land before we overwrite it.
-            @pl.when(i >= 2)
-            def _():
-                k_out(slot, ci + 2).wait()
-
-            wait(AB(slot, ci))
-            wait(QPD(slot, ci))
-            wait(BND(slot, ci))
-
-            def stage_body(j, Pp):
-                P, p = Pp
-                kk = C - 1 - j
-                k = ci * C + kk
-                Ak = Abuf[slot, kk]
-                Bk = Bbuf[slot, kk]
-                if compute_rdyn:
-                    rdyn_s[k] = (
-                        _mv(Ak, dx_s[k]) + _mv(Bk, du_s[k]) + rbuf[slot, kk]
-                        - dx_s[k + 1]
-                    )
-                corr_x, sig_x = x_corr_sig(
-                    k, lxbuf[slot, kk], uxbuf[slot, kk], mode, mu, target
+    def update(rc_mode, shift, a_p, a_d):
+        """Take the step; returns the new mean complementarity gap."""
+        def body(group, dref, is_x):
+            def f(k, i, g):
+                b, rc = bound_rc(rc_mode, shift, group, k, i)
+                d = dref[k, i]
+                ds_l, ds_u, dl_l, dl_u, de_l, de_u = _directions(b, d, rc)
+                nb = b._replace(
+                    v=b.v + a_p * d,
+                    sl=b.sl + a_p * ds_l, su=b.su + a_p * ds_u,
+                    ll=b.ll + a_d * dl_l, lu=b.lu + a_d * dl_u,
                 )
-                corr_u, sig_u = u_corr_sig(k, mode, mu, target)
-                qd_k = qdbuf[slot, kk]
-                rd_k = rdbuf[slot, kk]
-                qhat = qd_k * dx_s[k] + qxbuf[slot, kk] - llx_s[k] + lux_s[k] + corr_x
-                rhat = rd_k * du_s[k] + rubuf[slot, kk] - llu_s[k] + luu_s[k] + corr_u
-                Fr_p = _mv(P, rdyn_s[k]) + p
-                AtP = _mm(_t(Ak), P)
-                BtP = _mm(_t(Bk), P)
-                Gxx = _mm(AtP, Ak) + eye_x * (qd_k + sig_x)[None, :, :]
-                Guu = _mm(BtP, Bk) + eye_u * (rd_k + sig_u)[None, :, :]
-                Gxu = _mm(AtP, Bk)
-                gx = qhat + _mv(_t(Ak), Fr_p)
-                gu = rhat + _mv(_t(Bk), Fr_p)
-                rhs = jnp.concatenate([_t(Gxu), gu[:, None, :]], axis=1)
-                sol = _chol4_solve(Guu, rhs)
-                K = -sol[:, :nx, :]
-                kff = -sol[:, nx, :]
-                Kbuf[slot, kk] = K
-                kff_s[k] = kff
-                P = Gxx + _mm(Gxu, K)
-                P = 0.5 * (P + _t(P))
-                p = gx + _mv(Gxu, kff)
-                return (P, p)
+                if soft and is_x:
+                    nb = nb._replace(el=b.el + a_p * de_l, eu=b.eu + a_p * de_u,
+                                     nl=b.nl - a_d * dl_l, nu=b.nu - a_d * dl_u)
+                group[0][k, i] = nb.v
+                store(group, k, i, nb)
+                return g + _complementarity(nb)
+            return f
 
-            Pp = jax.lax.fori_loop(0, C, stage_body, Pp)
-            k_out(slot, ci).start()
-            return Pp
-
-        jax.lax.fori_loop(0, n_chunks, chunk_body, (P0, p0))
-        # Drain the in-flight K spills (the last two chunks' DMAs) before the
-        # rollout reads K_any back in.
-        k_out((n_chunks - 1) % 2, 0).wait()
-        if n_chunks >= 2:
-            k_out((n_chunks - 2) % 2, 1).wait()
-
-    # ---- streamed forward rollout (A/B + K read-in) ----
-    def forward(ddx_ref, ddu_ref):
-        start(AB(0, 0))
-        k_in(0, 0).start()
-        ddx_ref[0] = jnp.zeros((nx, L), f32)
-
-        def chunk_body(ci, ddx_prev):
-            slot = jax.lax.rem(ci, 2)
-
-            @pl.when(ci < n_chunks - 1)
-            def _():
-                start(AB(1 - slot, ci + 1))
-                k_in(1 - slot, ci + 1).start()
-
-            wait(AB(slot, ci))
-            k_in(slot, ci).wait()
-
-            def stage_body(kk, ddx_prev):
-                k = ci * C + kk
-                ddu = _mv(Kbuf[slot, kk], ddx_prev) + kff_s[k]
-                ddx_next = (
-                    _mv(Abuf[slot, kk], ddx_prev) + _mv(Bbuf[slot, kk], ddu)
-                    + rdyn_s[k]
-                )
-                ddu_ref[k] = ddu
-                ddx_ref[k + 1] = ddx_next
-                return ddx_next
-
-            return jax.lax.fori_loop(0, C, stage_body, ddx_prev)
-
-        jax.lax.fori_loop(0, n_chunks, chunk_body, jnp.zeros((nx, L), f32))
-
-    # ---- stage-looped elementwise phases over the bound stream ----
-    def steps_pass(ddx_ref, ddu_ref, mode, mu, target, t):
-        def body(k, lx_k, ux_k, carry):
-            a_p, a_d = carry
-            px = x_parts(k, lx_k, ux_k)
-            dda_k = ddxa_s[k] if mode == "corrector" else None
-            rcx = x_rc(px, dda_k, mode, mu, target)
-            dsx = x_dsdl(px, rcx, ddx_ref[k])
-            a_p = jnp.minimum(a_p, jnp.min(ratio(px[0], dsx[0], t), axis=0))
-            a_p = jnp.minimum(a_p, jnp.min(ratio(px[1], dsx[1], t), axis=0))
-            a_d = jnp.minimum(a_d, jnp.min(ratio(px[2], dsx[2], t), axis=0))
-            a_d = jnp.minimum(a_d, jnp.min(ratio(px[3], dsx[3], t), axis=0))
-            if soft:
-                a_p = jnp.minimum(a_p, jnp.min(ratio(px[6], dsx[4], t), axis=0))
-                a_p = jnp.minimum(a_p, jnp.min(ratio(px[7], dsx[5], t), axis=0))
-                a_d = jnp.minimum(a_d, jnp.min(ratio(px[8], -dsx[2], t), axis=0))
-                a_d = jnp.minimum(a_d, jnp.min(ratio(px[9], -dsx[3], t), axis=0))
-            pu = u_parts(k)
-            ddau_k = ddua_s[k] if mode == "corrector" else None
-            rcu = rc_pair(pu, ddau_k, mode, mu, target)
-            dsu = dsdl_of(pu, *rcu, ddu_ref[k])
-            a_p = jnp.minimum(a_p, jnp.min(ratio(pu[0], dsu[0], t), axis=0))
-            a_p = jnp.minimum(a_p, jnp.min(ratio(pu[1], dsu[1], t), axis=0))
-            a_d = jnp.minimum(a_d, jnp.min(ratio(pu[2], dsu[2], t), axis=0))
-            a_d = jnp.minimum(a_d, jnp.min(ratio(pu[3], dsu[3], t), axis=0))
-            return a_p, a_d
-
-        ones = jnp.ones((L,), f32)
-        a_p, a_d = bnd_loop(body, (ones, ones))
-        # terminal stage: x-type only
-        px = x_parts(T, lxT_ref[...], uxT_ref[...])
-        dda_k = ddxa_s[T] if mode == "corrector" else None
-        rcx = x_rc(px, dda_k, mode, mu, target)
-        dsx = x_dsdl(px, rcx, ddx_ref[T])
-        a_p = jnp.minimum(a_p, jnp.min(ratio(px[0], dsx[0], t), axis=0))
-        a_p = jnp.minimum(a_p, jnp.min(ratio(px[1], dsx[1], t), axis=0))
-        a_d = jnp.minimum(a_d, jnp.min(ratio(px[2], dsx[2], t), axis=0))
-        a_d = jnp.minimum(a_d, jnp.min(ratio(px[3], dsx[3], t), axis=0))
-        if soft:
-            a_p = jnp.minimum(a_p, jnp.min(ratio(px[6], dsx[4], t), axis=0))
-            a_p = jnp.minimum(a_p, jnp.min(ratio(px[7], dsx[5], t), axis=0))
-            a_d = jnp.minimum(a_d, jnp.min(ratio(px[8], -dsx[2], t), axis=0))
-            a_d = jnp.minimum(a_d, jnp.min(ratio(px[9], -dsx[3], t), axis=0))
-        return a_p, a_d
-
-    def gap_pass():
-        def body(k, g):
-            g = g + jnp.sum(slx_s[k] * llx_s[k] + sux_s[k] * lux_s[k], axis=0)
-            if soft:
-                g = g + jnp.sum(elx_s[k] * nulx_s[k] + eux_s[k] * nuux_s[k], axis=0)
-            return g + jnp.sum(slu_s[k] * llu_s[k] + suu_s[k] * luu_s[k], axis=0)
-
-        g = jax.lax.fori_loop(0, T, body, jnp.zeros((L,), f32))
-        g = g + jnp.sum(slx_s[T] * llx_s[T] + sux_s[T] * lux_s[T], axis=0)
-        if soft:
-            g = g + jnp.sum(elx_s[T] * nulx_s[T] + eux_s[T] * nuux_s[T], axis=0)
+        g = all_stages(body(x_group, ddx, True), body(u_group, ddu, False), zeros)
         return g / m_total
 
-    def affine_gap_pass(ap_a, ad_a):
-        ap, ad = ap_a[None, :], ad_a[None, :]
-
-        def x_term(px, rcx, dd_k):
-            ds = x_dsdl(px, rcx, dd_k)
-            g = jnp.sum(
-                (px[0] + ap * ds[0]) * (px[2] + ad * ds[2])
-                + (px[1] + ap * ds[1]) * (px[3] + ad * ds[3]),
-                axis=0,
-            )
-            if soft:
-                g = g + jnp.sum(
-                    (px[6] + ap * ds[4]) * (px[8] - ad * ds[2])
-                    + (px[7] + ap * ds[5]) * (px[9] - ad * ds[3]),
-                    axis=0,
-                )
-            return g
-
-        def body(k, lx_k, ux_k, g):
-            px = x_parts(k, lx_k, ux_k)
-            rcx = x_rc(px, None, "affine", None, None)
-            g = g + x_term(px, rcx, ddxa_s[k])
-            pu = u_parts(k)
-            rcu = rc_pair(pu, None, "affine", None, None)
-            dsu = dsdl_of(pu, *rcu, ddua_s[k])
-            return g + jnp.sum(
-                (pu[0] + ap * dsu[0]) * (pu[2] + ad * dsu[2])
-                + (pu[1] + ap * dsu[1]) * (pu[3] + ad * dsu[3]),
-                axis=0,
-            )
-
-        g = bnd_loop(body, jnp.zeros((L,), f32))
-        px = x_parts(T, lxT_ref[...], uxT_ref[...])
-        rcx = x_rc(px, None, "affine", None, None)
-        g = g + x_term(px, rcx, ddxa_s[T])
-        return g / m_total
-
-    def update_pass(mode, mu, target, a_p, a_d):
-        ap = a_p[None, :]
-        ad = a_d[None, :]
-
-        def x_update(k, lx_k, ux_k):
-            px = x_parts(k, lx_k, ux_k)
-            dda_k = ddxa_s[k] if mode == "corrector" else None
-            rcx = x_rc(px, dda_k, mode, mu, target)
-            dsx = x_dsdl(px, rcx, ddx_s[k])
-            dx_s[k] = dx_s[k] + ap * ddx_s[k]
-            slx_s[k] = px[0] + ap * dsx[0]
-            sux_s[k] = px[1] + ap * dsx[1]
-            llx_s[k] = px[2] + ad * dsx[2]
-            lux_s[k] = px[3] + ad * dsx[3]
-            if soft:
-                elx_s[k] = px[6] + ap * dsx[4]
-                eux_s[k] = px[7] + ap * dsx[5]
-                nulx_s[k] = px[8] - ad * dsx[2]
-                nuux_s[k] = px[9] - ad * dsx[3]
-
-        def body(k, lx_k, ux_k, c):
-            x_update(k, lx_k, ux_k)
-            pu = u_parts(k)
-            ddau_k = ddua_s[k] if mode == "corrector" else None
-            rcu = rc_pair(pu, ddau_k, mode, mu, target)
-            dsu = dsdl_of(pu, *rcu, ddu_s[k])
-            du_s[k] = du_s[k] + ap * ddu_s[k]
-            slu_s[k] = pu[0] + ap * dsu[0]
-            suu_s[k] = pu[1] + ap * dsu[1]
-            llu_s[k] = pu[2] + ad * dsu[2]
-            luu_s[k] = pu[3] + ad * dsu[3]
-            return c
-
-        bnd_loop(body, 0)
-        x_update(T, lxT_ref[...], uxT_ref[...])
-
-    def ip_iter_body(mu):
-        if mehrotra:
-            gap_now = gap_pass()
-            backward("affine", None, None, compute_rdyn=True)
-            forward(ddxa_s, ddua_s)
-            ap_a, ad_a = steps_pass(ddxa_s, ddua_s, "affine", None, None, 1.0)
-            gap_aff = affine_gap_pass(ap_a, ad_a)
-            sig = jnp.clip((gap_aff / jnp.maximum(gap_now, 1e-16)) ** 3, 1e-4, 1.0)
-            target = jnp.maximum(sig * gap_now, 1e-8 if soft else 1e-14)
-            backward("corrector", None, target, compute_rdyn=False)
-            forward(ddx_s, ddu_s)
-            a_p, a_d = steps_pass(ddx_s, ddu_s, "corrector", None, target, tau)
-            update_pass("corrector", None, target, a_p, a_d)
+    def ip_iteration(mu, gap):
+        dynamics_residual()
+        if o.mehrotra:
+            # Affine predictor (per-scenario adaptive centering, HPIPM's scheme).
+            sweep_matrix("affine", None)
+            ap_a, ad_a = rollout("affine", None, ddxa, ddua, 1.0)
+            gap_aff = affine_gap(ap_a, ad_a)
+            ratio = gap_aff / jnp.maximum(gap, 1e-16)
+            sig = jnp.minimum(jnp.maximum(ratio * ratio * ratio, 1e-4), 1.0)
+            # Soft mode: f32 validity floor on the centering target — the exit
+            # is per block, so a converged scenario keeps iterating while its
+            # block-mates finish and must not center into the regime where f32
+            # barrier weights break the Riccati (see boxqp.py).
+            target = jnp.maximum(sig * gap, 1e-8 if soft else 1e-14)
+            # Corrector: same KKT matrix -> vector-only sweep over the stored
+            # factorization.
+            sweep_vector("corrector", target)
+            a_p, a_d = rollout("corrector", target, ddx, ddu, o.tau)
+            new_gap = update("corrector", target, a_p, a_d)
         else:
-            backward("fixed", mu, None, compute_rdyn=True)
-            forward(ddx_s, ddu_s)
-            a_p, a_d = steps_pass(ddx_s, ddu_s, "fixed", mu, None, tau)
-            update_pass("fixed", mu, None, a_p, a_d)
-        return jnp.maximum(sigma * gap_pass(), 1e-8 if soft else 1e-12)
+            sweep_matrix("centered", mu)
+            a_p, a_d = rollout("centered", mu, ddx, ddu, o.tau)
+            new_gap = update("centered", mu, a_p, a_d)
+        return jnp.maximum(o.sigma * new_gap, floor), new_gap
 
-    if adaptive_tol is None:
-        jax.lax.fori_loop(
-            0, n_ip, lambda it, mu: ip_iter_body(mu), jnp.full((L,), mu0, f32)
-        )
-    else:
-        mu_s[0, :] = jnp.full((L,), mu0, f32)
+    def cond(carry):
+        it, mu, _ = carry
+        go = it < o.n_ip
+        if o.adaptive_tol is not None:
+            # Adaptive exit: stop once every scenario of the block is centered
+            # below the tolerance. n_ip stays the hard cap.
+            go = jnp.logical_and(go, jnp.max(mu) > o.adaptive_tol)
+        return go
 
-        def ip_iter_adaptive(it, _):
-            mu = mu_s[0, :]
-            active = jnp.logical_not(jnp.all(mu <= adaptive_tol))
+    def body(carry):
+        it, mu, gap = carry
+        mu, gap = ip_iteration(mu, gap)
+        return it + 1, mu, gap
 
-            @pl.when(active)
-            def _():
-                mu_s[0, :] = ip_iter_body(mu)
-
-            return 0
-
-        jax.lax.fori_loop(0, n_ip, ip_iter_adaptive, 0)
-    gap_out[0, :] = gap_pass()
-    # dx/du live in HBM (ANY): one whole-array DMA each from the resident state.
-    dxc = pltpu.make_async_copy(dx_s, dx_out, out_sem.at[0])
-    duc = pltpu.make_async_copy(du_s, du_out, out_sem.at[1])
-    dxc.start()
-    duc.start()
-    dxc.wait()
-    duc.wait()
-
-
-def _stream2_chunk_size(T: int) -> int:
-    """Largest divisor of T ≤ 4 — tier-2 chunks are smaller than tier-1's to
-    keep the (three-group + K) double buffers inside the VMEM budget at T≈200."""
-    for c in range(min(4, T), 0, -1):
-        if T % c == 0:
-            return c
-    return 1
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "n_ip", "mu0", "sigma", "tau", "adaptive_tol", "mehrotra", "soft_rho",
-        "interpret",
-    ),
-)
-def solve_ocp_qp_lanes_streamed2(
-    qp: LanesQp,
-    n_ip: int = 15,
-    mu0: float = 1e-1,
-    sigma: float = 0.2,
-    tau: float = 0.995,
-    adaptive_tol: float | None = None,
-    mehrotra: bool = False,
-    soft_rho: float | None = None,
-    interpret: bool = False,
-) -> tuple[jax.Array, jax.Array, jax.Array]:
-    """Tier-2 streaming QP kernel for horizons past the tier-1 cap (T>112):
-    all read-only data (A/B, QP cost data, state boxes) streams from HBM per
-    chunk, K spills to HBM between sweeps, and only the IP state vectors stay
-    resident. See `_ip_kernel_body_streamed2`."""
-    T, nx, _, L = qp.A.shape
-    nu = qp.B.shape[2]
-    f32 = jnp.float32
-    C = _stream2_chunk_size(T)
-
-    if soft_rho is not None:
-        adaptive_tol = max(adaptive_tol or 0.0, 1e-8)
-    kernel = functools.partial(
-        _ip_kernel_body_streamed2, n_ip, mu0, sigma, tau, adaptive_tol, mehrotra,
-        soft_rho, C,
-    )
-    vm = lambda: pl.BlockSpec(memory_space=pltpu.VMEM)
-    # Explicit HBM (NOT pl.ANY): the compiler placed the 4.9 MB K spill and du
-    # in VMEM under ANY at T=200, blowing the 16 MB scoped limit by 1.2 MB.
-    hbm = lambda: pl.BlockSpec(memory_space=pltpu.HBM)
-    scratch = [
-        pltpu.VMEM((T + 1, nx, L), f32),  # dx
-        pltpu.VMEM((T, nu, L), f32),  # du
-        pltpu.VMEM((T + 1, nx, L), f32),  # s_lx
-        pltpu.VMEM((T + 1, nx, L), f32),  # s_ux
-        pltpu.VMEM((T, nu, L), f32),  # s_lu
-        pltpu.VMEM((T, nu, L), f32),  # s_uu
-        pltpu.VMEM((T + 1, nx, L), f32),  # lam_lx
-        pltpu.VMEM((T + 1, nx, L), f32),  # lam_ux
-        pltpu.VMEM((T, nu, L), f32),  # lam_lu
-        pltpu.VMEM((T, nu, L), f32),  # lam_uu
-        pltpu.VMEM((T, nu, L), f32),  # kff
-        pltpu.VMEM((T, nx, L), f32),  # r_dyn
-        pltpu.VMEM((1, L), f32),  # mu (adaptive-exit carry)
-        pltpu.VMEM((T + 1, nx, L), f32),  # ddx (Newton direction)
-        pltpu.VMEM((T, nu, L), f32),  # ddu
-        pltpu.VMEM((2, C, nx, nx, L), f32),  # A double buffer
-        pltpu.VMEM((2, C, nx, nu, L), f32),  # B double buffer
-        pltpu.VMEM((2, C, nx, L), f32),  # r buffer
-        pltpu.VMEM((2, C, nx, L), f32),  # qdiag buffer
-        pltpu.VMEM((2, C, nx, L), f32),  # qx buffer
-        pltpu.VMEM((2, C, nu, L), f32),  # rdiag buffer
-        pltpu.VMEM((2, C, nu, L), f32),  # ru buffer
-        pltpu.VMEM((2, C, nx, L), f32),  # lx buffer
-        pltpu.VMEM((2, C, nx, L), f32),  # ux buffer
-        pltpu.VMEM((2, C, nu, nx, L), f32),  # K chunk buffer (spill surface)
-        pltpu.SemaphoreType.DMA((2, 2)),  # A/B
-        pltpu.SemaphoreType.DMA((2, 5)),  # QP-data group
-        pltpu.SemaphoreType.DMA((2, 2)),  # bounds group
-        pltpu.SemaphoreType.DMA((2,)),  # K spill out
-        pltpu.SemaphoreType.DMA((2,)),  # K read in
-        pltpu.SemaphoreType.DMA((2,)),  # dx/du output DMA
-    ]
-    if mehrotra:
-        scratch += [
-            pltpu.VMEM((T + 1, nx, L), f32),  # ddx affine
-            pltpu.VMEM((T, nu, L), f32),  # ddu affine
-        ]
-    if soft_rho is not None:
-        scratch += [
-            pltpu.VMEM((T + 1, nx, L), f32),  # e_lx
-            pltpu.VMEM((T + 1, nx, L), f32),  # e_ux
-            pltpu.VMEM((T + 1, nx, L), f32),  # nu_lx
-            pltpu.VMEM((T + 1, nx, L), f32),  # nu_ux
-        ]
-    dx, du, K_spill, gap = pl.pallas_call(
-        kernel,
-        in_specs=[hbm() for _ in range(9)] + [vm() for _ in range(6)],
-        out_specs=[hbm(), hbm(), hbm(), vm()],
-        out_shape=[
-            jax.ShapeDtypeStruct((T + 1, nx, L), f32),
-            jax.ShapeDtypeStruct((T, nu, L), f32),
-            jax.ShapeDtypeStruct((T, nu, nx, L), f32),
-            jax.ShapeDtypeStruct((1, L), f32),
-        ],
-        scratch_shapes=scratch,
-        interpret=interpret,
-        compiler_params=pltpu.CompilerParams(vmem_limit_bytes=VMEM_LIMIT_BYTES),
-    )(
-        qp.A, qp.B, qp.r, qp.qdiag[:T], qp.qx[:T], qp.rdiag, qp.ru,
-        qp.lx[:T], qp.ux[:T],
-        qp.lu, qp.uu, qp.qdiag[T], qp.qx[T], qp.lx[T], qp.ux[T],
-    )
-    del K_spill  # kernel-internal backward->forward spill surface
-    return dx, du, gap[0]
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "n_ip", "mu0", "sigma", "tau", "adaptive_tol", "mehrotra", "soft_rho",
-        "interpret",
-    ),
-)
-def solve_ocp_qp_lanes_streamed(
-    qp: LanesQp,
-    n_ip: int = 15,
-    mu0: float = 1e-1,
-    sigma: float = 0.2,
-    tau: float = 0.995,
-    adaptive_tol: float | None = None,
-    mehrotra: bool = False,
-    soft_rho: float | None = None,
-    interpret: bool = False,
-) -> tuple[jax.Array, jax.Array, jax.Array]:
-    """Long-horizon variant of `solve_ocp_qp_lanes`: identical IP semantics, but
-    the per-stage dynamics matrices A (T,nx,nx,L) and B (T,nx,nu,L) — 96 KiB per
-    stage at L=128, the tensors that wall the all-resident kernel at T≈50 — stay
-    in HBM and are streamed through double-buffered VMEM chunks by async DMA in
-    each Riccati sweep and rollout. Everything that persists across IP iterations
-    (slacks, duals, iterates, gains K) remains VMEM-resident, and the dynamics-
-    residual staging is fused into the first backward sweep of each iteration, so
-    one Newton solve costs exactly two A/B streams (backward + forward).
-
-    Per-chunk DMA (2·C·96 KiB) overlaps the ~C·3.5 µs of VPU work per chunk, so
-    the stream adds bandwidth, not latency. Horizon cap moves from VMEM capacity
-    (T≈50) to the resident vector state (~100 KiB/stage → T≈128 on a 16 MiB core).
-    """
-    T, nx, _, L = qp.A.shape
-    nu = qp.B.shape[2]
-    f32 = jnp.float32
-    C = _stream_chunk_size(T)
-
-    if soft_rho is not None:
-        # f32 validity floor, as in the resident kernel (see ops/boxqp.py).
-        adaptive_tol = max(adaptive_tol or 0.0, 1e-8)
-    kernel = functools.partial(
-        _ip_kernel_body_streamed, n_ip, mu0, sigma, tau, adaptive_tol, mehrotra,
-        soft_rho, C,
-    )
-    vm = lambda: pl.BlockSpec(memory_space=pltpu.VMEM)
-    hbm = lambda: pl.BlockSpec(memory_space=pl.ANY)
-    scratch = [
-        pltpu.VMEM((T + 1, nx, L), f32),  # dx
-        pltpu.VMEM((T, nu, L), f32),  # du
-        pltpu.VMEM((T + 1, nx, L), f32),  # s_lx
-        pltpu.VMEM((T + 1, nx, L), f32),  # s_ux
-        pltpu.VMEM((T, nu, L), f32),  # s_lu
-        pltpu.VMEM((T, nu, L), f32),  # s_uu
-        pltpu.VMEM((T + 1, nx, L), f32),  # lam_lx
-        pltpu.VMEM((T + 1, nx, L), f32),  # lam_ux
-        pltpu.VMEM((T, nu, L), f32),  # lam_lu
-        pltpu.VMEM((T, nu, L), f32),  # lam_uu
-        pltpu.VMEM((T, nu, nx, L), f32),  # K
-        pltpu.VMEM((T, nu, L), f32),  # kff
-        pltpu.VMEM((T, nx, L), f32),  # r_dyn
-        pltpu.VMEM((1, L), f32),  # mu (adaptive-exit carry)
-        pltpu.VMEM((T + 1, nx, L), f32),  # ddx (Newton direction)
-        pltpu.VMEM((T, nu, L), f32),  # ddu
-    ]
-    if mehrotra:
-        scratch += [
-            pltpu.VMEM((T + 1, nx, L), f32),  # ddx affine
-            pltpu.VMEM((T, nu, L), f32),  # ddu affine
-        ]
-    scratch += [
-        pltpu.VMEM((2, C, nx, nx, L), f32),  # A double buffer
-        pltpu.VMEM((2, C, nx, nu, L), f32),  # B double buffer
-        pltpu.SemaphoreType.DMA((2, 2)),  # per-(slot, tensor) DMA semaphores
-    ]
-    if soft_rho is not None:
-        scratch += [
-            pltpu.VMEM((T + 1, nx, L), f32),  # e_lx (soft violation slack)
-            pltpu.VMEM((T + 1, nx, L), f32),  # e_ux
-            pltpu.VMEM((T + 1, nx, L), f32),  # nu_lx = rho - lam_lx (explicit)
-            pltpu.VMEM((T + 1, nx, L), f32),  # nu_ux
-        ]
-    dx, du, gap = pl.pallas_call(
-        kernel,
-        in_specs=[hbm(), hbm()] + [vm() for _ in range(9)],
-        out_specs=[vm(), vm(), vm()],
-        out_shape=[
-            jax.ShapeDtypeStruct((T + 1, nx, L), f32),
-            jax.ShapeDtypeStruct((T, nu, L), f32),
-            jax.ShapeDtypeStruct((1, L), f32),
-        ],
-        scratch_shapes=scratch,
-        interpret=interpret,
-        compiler_params=pltpu.CompilerParams(vmem_limit_bytes=VMEM_LIMIT_BYTES),
-    )(qp.A, qp.B, qp.r, qp.qdiag, qp.qx, qp.rdiag, qp.ru, qp.lx, qp.ux, qp.lu, qp.uu)
-    return dx, du, gap[0]
+    mu0 = jnp.full((S,), o.mu0, f32)
+    _, _, gap = jax.lax.while_loop(cond, body, (jnp.int32(0), mu0, gap0))
+    gap_out[0] = gap
 
 
 @functools.partial(
@@ -1815,19 +691,22 @@ def solve_ocp_qp_lanes(
     soft_rho: float | None = None,
     interpret: bool = False,
 ) -> tuple[jax.Array, jax.Array, jax.Array]:
-    """Solve a lane-tiled batch of OCP-QPs. Returns (dx (T+1,nx,L), du (T,nu,L),
-    gap (L,) final complementarity gap per lane).
+    """Solve a batch of OCP-QPs, scenario axis last. Returns (dx (T+1,nx,B),
+    du (T,nu,B), gap (B,) final complementarity gap per scenario).
 
-    One grid step per lane tile; all problem data and IP state stay in VMEM for
-    the whole solve. mehrotra=True runs the predictor-corrector (two Riccati
-    sweeps per iteration, per-lane adaptive centering — fewer iterations to a
-    given gap; pair with adaptive_tol to bank the saved iterations).
+    One launch over ceil(B / S) blocks of S = `SCENARIO_BLOCK` scenarios;
+    the batch is padded to a whole block by repeating the last scenario, so
+    padding never holds back a block's adaptive exit.
+    mehrotra=True runs the predictor-corrector (two sweeps per iteration, one
+    factorization); pair with adaptive_tol to bank the saved iterations.
     soft_rho: L1 penalty weight for soft state bounds (the bounded-multiplier
-    formulation of ops/boxqp.py); costs two extra (T+1, nx, L) scratch arrays.
+    formulation of ops/boxqp.py).
     """
-    T, nx, _, L = qp.A.shape
+    T, nx, _, B = qp.A.shape
     nu = qp.B.shape[2]
     f32 = jnp.float32
+    S = SCENARIO_BLOCK
+    B_pad = -(-B // S) * S
 
     if soft_rho is not None:
         # f32 validity floor: iterating the centering parameter below ~1e-8
@@ -1835,56 +714,55 @@ def solve_ocp_qp_lanes(
         # factor (see ops/boxqp.py gap_tol). The adaptive exit doubles as the
         # numerical stop.
         adaptive_tol = max(adaptive_tol or 0.0, 1e-8)
-    kernel = functools.partial(
-        _ip_kernel_body, n_ip, mu0, sigma, tau, adaptive_tol, mehrotra, soft_rho
-    )
-    vm = lambda: pl.BlockSpec(memory_space=pltpu.VMEM)
-    scratch = [
-        pltpu.VMEM((T + 1, nx, L), f32),  # dx
-        pltpu.VMEM((T, nu, L), f32),  # du
-        pltpu.VMEM((T + 1, nx, L), f32),  # s_lx
-        pltpu.VMEM((T + 1, nx, L), f32),  # s_ux
-        pltpu.VMEM((T, nu, L), f32),  # s_lu
-        pltpu.VMEM((T, nu, L), f32),  # s_uu
-        pltpu.VMEM((T + 1, nx, L), f32),  # lam_lx
-        pltpu.VMEM((T + 1, nx, L), f32),  # lam_ux
-        pltpu.VMEM((T, nu, L), f32),  # lam_lu
-        pltpu.VMEM((T, nu, L), f32),  # lam_uu
-        pltpu.VMEM((T, nu, nx, L), f32),  # K
-        pltpu.VMEM((T, nu, L), f32),  # kff
-        pltpu.VMEM((T, nx, L), f32),  # r_dyn
-        pltpu.VMEM((T + 1, nx, L), f32),  # qhat
-        pltpu.VMEM((T, nu, L), f32),  # rhat
-        pltpu.VMEM((T + 1, nx, L), f32),  # sigma_x
-        pltpu.VMEM((T, nu, L), f32),  # sigma_u
-        pltpu.VMEM((1, L), f32),  # mu (adaptive-exit carry)
+    opts = _Opts(n_ip, mu0, sigma, tau, adaptive_tol, mehrotra, soft_rho)
+
+    def pad(x):
+        x = x.astype(f32)
+        if B_pad == B:
+            return x
+        return jnp.pad(x, [(0, 0)] * (x.ndim - 1) + [(0, B_pad - B)], mode="edge")
+
+    def spec(rows):
+        return pl.BlockSpec((rows, S), lambda b: (0, b))
+
+    def buf(*lead):
+        return jax.ShapeDtypeStruct(lead + (B_pad,), f32)
+
+    xs, us = (T + 1, nx), (T, nu)
+    outs = [
+        buf(*xs), buf(*us), buf(),  # dx, du, gap
+        buf(*xs), buf(*xs), buf(*us), buf(*us),  # s_lx, s_ux, s_lu, s_uu
+        buf(*xs), buf(*xs), buf(*us), buf(*us),  # lam_lx, lam_ux, lam_lu, lam_uu
+        buf(T, nx), buf(T, nu, nx), buf(T, nu),  # r_dyn, K, kff
+        buf(T, nx),  # Pr = P_{k+1} r_dyn_k
+        buf(T, nu * (nu + 1) // 2),  # chol(Guu), packed lower triangle
+        buf(T, nu, nx),  # Y = chol(Guu)^{-1} Gxu'
+        buf(*xs), buf(*us),  # Newton direction (ddx, ddu)
+        # Riccati work buffers of the current stage: P, p, P A, P B,
+        # P r + p, qhat, sigma_x, rhat, sigma_u
+        buf(nx, nx), buf(nx), buf(nx, nx), buf(nx, nu), buf(nx),
+        buf(nx), buf(nx), buf(nu), buf(nu),
     ]
     if mehrotra:
-        # Shared-factorization stores: the corrector reuses the affine pass's
-        # KKT factorization (vector-only sweep) — see solve_newton.
-        scratch += [
-            pltpu.VMEM((T, nx, L), f32),  # Pr = P_{k+1} @ rdyn_k
-            pltpu.VMEM((T, nu, nu, L), f32),  # Guu Cholesky factor (lower)
-            pltpu.VMEM((T, nx, nu, L), f32),  # Gxu
-        ]
+        outs += [buf(*xs), buf(*us)]  # affine direction
     if soft_rho is not None:
-        scratch += [
-            pltpu.VMEM((T + 1, nx, L), f32),  # e_lx (soft violation slack)
-            pltpu.VMEM((T + 1, nx, L), f32),  # e_ux
-            pltpu.VMEM((T + 1, nx, L), f32),  # nu_lx = rho - lam_lx (explicit)
-            pltpu.VMEM((T + 1, nx, L), f32),  # nu_ux
-        ]
-    dx, du, gap = pl.pallas_call(
-        kernel,
-        in_specs=[vm() for _ in range(11)],
-        out_specs=[vm(), vm(), vm()],
-        out_shape=[
-            jax.ShapeDtypeStruct((T + 1, nx, L), f32),
-            jax.ShapeDtypeStruct((T, nu, L), f32),
-            jax.ShapeDtypeStruct((1, L), f32),
-        ],
-        scratch_shapes=scratch,
+        outs += [buf(*xs)] * 4  # e_lx, e_ux, nu_lx, nu_ux
+    ins = [pad(a) for a in qp]
+    leads = tuple(a.shape[:-1] for a in ins) + tuple(o.shape[:-1] for o in outs)
+    flat_ins = [a.reshape(-1, B_pad) for a in ins]
+    flat_outs = [
+        jax.ShapeDtypeStruct((math.prod(o.shape[:-1]), B_pad), f32) for o in outs
+    ]
+    res = pl.pallas_call(
+        functools.partial(_ip_kernel, opts, T, nx, nu, leads),
+        grid=(B_pad // S,),
+        in_specs=[spec(a.shape[0]) for a in flat_ins],
+        out_specs=[spec(o.shape[0]) for o in flat_outs],
+        out_shape=flat_outs,
+        backend="triton",
+        compiler_params=pltriton.CompilerParams(num_warps=1, num_stages=1),
         interpret=interpret,
-        compiler_params=pltpu.CompilerParams(vmem_limit_bytes=VMEM_LIMIT_BYTES),
-    )(qp.A, qp.B, qp.r, qp.qdiag, qp.qx, qp.rdiag, qp.ru, qp.lx, qp.ux, qp.lu, qp.uu)
-    return dx, du, gap[0]
+        name="ocp_qp_ip",
+    )(*flat_ins)
+    dx, du, gap = (r.reshape(o.shape) for r, o in zip(res[:3], outs[:3]))
+    return dx[..., :B], du[..., :B], gap[:B]

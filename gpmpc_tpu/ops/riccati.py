@@ -1,13 +1,12 @@
 """Riccati recursion for affine LQ optimal-control subproblems.
 
-This is the TPU-native replacement for the factorization engine inside HPIPM
+This is the JAX replacement for the factorization engine inside HPIPM
 (selected by the reference as its QP backend, /root/reference/gpmpc/mpc.py:115):
 every interior-point iteration of the OCP-QP reduces to one equality-constrained
 affine LQR solve, performed here as a backward `lax.scan` over stages followed by a
-forward rollout. All per-stage blocks are tiny (nx=12, nu=4); throughput on TPU
-comes from `vmap`-batching thousands of scenarios so the 12x12 blocks become large
-batched GEMMs on the MXU, not from panel-major BLAS tricks (≙ BLASFEO's role,
-SURVEY.md §2.2).
+forward rollout. All per-stage blocks are tiny (nx=12, nu=4); this is the plain
+reference path, batched with `vmap`; the throughput path is the scenario-blocked
+QP kernel in ops/pallas_ocp.py (≙ BLASFEO's role, SURVEY.md §2.2).
 
 Solves:
     min_{dx, du}  sum_k 1/2 dx_k'Qxx_k dx_k + qx_k'dx_k
@@ -51,12 +50,10 @@ def _backward_step(carry, inputs):
     P_next, p_next = carry
     A, B, r, Qxx, qx, Ruu, ru = inputs
 
-    # Full-f32 matmuls, not the TPU MXU's bf16 default: the interior-point
-    # barrier pushes entries of P/Qxx to ~1e6-1e8 near convergence, and bf16's
-    # 8-bit mantissa (~0.4% relative error) is enough to lose Guu's positive-
-    # definiteness — observed as NaN Cholesky on TPU (soft bounds, T=50) while
-    # the identical f32 program was clean on CPU. The blocks are 12x12; the
-    # precision costs nothing measurable here.
+    # Full-f32 matmuls, not a reduced-precision default (TF32 on a GPU, bf16
+    # elsewhere): the interior-point barrier pushes entries of P/Qxx to
+    # ~1e6-1e8 near convergence, and a short mantissa is enough to lose Guu's
+    # positive-definiteness (NaN Cholesky). The blocks are 12x12.
     prec = jax.lax.Precision.HIGHEST
 
     # Q-function blocks around the affine dynamics dx' = A dx + B du + r.

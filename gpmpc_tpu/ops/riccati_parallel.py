@@ -81,8 +81,8 @@ def _combine(ei: _ValueElem, ej: _ValueElem) -> _ValueElem:
 
 def riccati_solve_parallel(lq: LqProblem, dx0: jax.Array) -> LqSolution:
     """Associative-scan LQR solve; same contract as `riccati.riccati_solve`."""
-    # Full-f32 matmuls (not the TPU bf16 default): IP barrier weights push
-    # P/Qxx entries to ~1e6-1e8 and bf16 rounding can cost Guu its positive-
+    # Full-f32 matmuls (not a reduced-precision default): IP barrier weights
+    # push P/Qxx entries to ~1e6-1e8 and TF32/bf16 rounding can cost Guu its positive-
     # definiteness (NaN Cholesky) — see riccati.py::_backward_step.
     with jax.default_matmul_precision("highest"):
         return _riccati_solve_parallel_impl(lq, dx0)

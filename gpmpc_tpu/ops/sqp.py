@@ -1,6 +1,6 @@
 """SQP solver for nonlinear trajectory-tracking OCPs.
 
-TPU-native replacement for the acados SQP runtime (configured by the reference at
+JAX replacement for the acados SQP runtime (configured by the reference at
 /root/reference/gpmpc/mpc.py:113-120: Gauss-Newton Hessian, DISCRETE integrator,
 nlp_solver_type="SQP", max 25 iterations, fixed full steps). Each iteration
 linearizes the discrete dynamics with `jax.jacfwd` (replacing CasADi symbolic
@@ -38,10 +38,10 @@ class SqpConfig(NamedTuple):
     # exits at tolerance, max_iter is a cap — and is where warm-started MPC wins:
     # steady-state solves converge in 2-3 iterations.
     early_exit: bool = True
-    # In-kernel adaptive IP exit for the lanes backend: once every lane's
-    # centering parameter drops below this, remaining IP iterations are
-    # predicated away. None = fixed qp_iters count (the XLA backend always runs
-    # the fixed count).
+    # In-kernel adaptive IP exit for the QP kernel (lanes backend): once every
+    # scenario of a block has its centering parameter below this, the block's
+    # remaining IP iterations are skipped. None = fixed qp_iters count (the
+    # XLA backend always runs the fixed count).
     qp_tol: float | None = None
     # Use analytic dynamics Jacobians (models/jacobians.py) instead of jacfwd in
     # the lanes backend; quadrotor models only (other families fall back).
@@ -50,20 +50,11 @@ class SqpConfig(NamedTuple):
     # sweeps per iteration, per-scenario adaptive centering, fewer iterations to
     # a given gap (HPIPM's scheme; pair with qp_tol on the lanes backend).
     qp_mehrotra: bool = False
-    # Linearize the dynamics inside a lane-packed Pallas kernel
-    # (ops/pallas_linearize.py) instead of jacfwd, keeping X/U in lanes layout
-    # across the whole SQP loop. Families with a hand-derived kernel only
-    # (ResidualSpec.supports_kernel_linearize — the quadrotor; isotropic and
-    # ARD kernels); other models fall back to jacfwd automatically.
-    kernel_linearize: bool = False
     # L1 penalty weight that makes the STATE bounds soft (slack-penalized, the
     # HPIPM bounded-multiplier formulation in ops/boxqp.py) so aggressive
     # chance-constraint tightening degrades gracefully instead of producing an
     # infeasible QP. None = hard bounds. Input bounds are always hard (they are
-    # actuator limits). Supported by the XLA backend at any horizon and by the
-    # lanes backend up to sqp_lanes.MAX_STREAM_HORIZON_SOFT (the four extra
-    # soft state arrays shrink the streamed kernel's resident budget); beyond
-    # that callers fall back to hard bounds + clamp (warned).
+    # actuator limits). Both backends support it at any horizon.
     soft_x_penalty: float | None = None
     # Levenberg-Marquardt regularization (≙ acados
     # ocp.solver_options.levenberg_marquardt): lm_reg * I is added to the
@@ -79,9 +70,7 @@ class SqpConfig(NamedTuple):
     # is time-aligned with the new problem. The tightening still linearizes
     # around the UNSHIFTED previous solution (reference semantics,
     # gpmpc.py:438). Off by default: matches the reference's unshifted acados
-    # warm start, and measured NOT faster here (86.9k vs 89.2k solves/s at the
-    # default bench config — with adaptive-exit SQP/IP, the unshifted warm
-    # start is already inside the one-iteration convergence basin at dt=0.02).
+    # warm start.
     warm_shift: bool = False
     # KKT-residual exit criteria (acados residual semantics: nlp_solver_tol_eq /
     # tol_stat, ≙ the solver options at /root/reference/gpmpc/mpc.py:113-120).

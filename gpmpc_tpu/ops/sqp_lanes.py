@@ -1,11 +1,11 @@
-"""Batched SQP with the lane-packed Pallas QP backend.
+"""Batched SQP with the scenario-blocked Pallas QP backend.
 
 Same Gauss-Newton SQP semantics as `sqp.sqp_solve` (full steps, masked
 convergence), but organized batch-first: dynamics linearization runs as one big
-vmapped `jacfwd` over all B*T stage points (elementwise-over-batch XLA code, which
-the TPU vectorizes well), and the QP solves go through `pallas_ocp.
-solve_ocp_qp_lanes`, which lane-packs 128 scenarios per kernel launch (the part
-XLA handles badly — see pallas_ocp.py).
+vmapped `jacfwd` over all B*T stage points (elementwise-over-batch XLA code that
+fuses into a few kernels per SQP iteration), and the QP solves of the whole
+batch go through ONE launch of `pallas_ocp.solve_ocp_qp_lanes` (the part XLA
+handles badly — see pallas_ocp.py). The kernel's stage loops serve any horizon.
 
 Requires diagonal Q/R stage costs (always true for this framework's LINEAR_LS
 tracking cost + IP barrier).
@@ -13,19 +13,13 @@ tracking cost + IP barrier).
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable
 
 import jax
 import jax.numpy as jnp
 
 from gpmpc_tpu.ops.boxqp import BOUND_INF
-from gpmpc_tpu.ops.pallas_ocp import (
-    LANES,
-    LanesQp,
-    solve_ocp_qp_lanes,
-    solve_ocp_qp_lanes_streamed,
-    solve_ocp_qp_lanes_streamed2,
-)
+from gpmpc_tpu.ops.pallas_ocp import LanesQp, solve_ocp_qp_lanes
 from gpmpc_tpu.ops.sqp import (
     OcpBounds,
     OcpCost,
@@ -35,284 +29,73 @@ from gpmpc_tpu.ops.sqp import (
 )
 
 
-# All-resident kernel cap. After the accumulating-matmul rewrite (small live
-# temporaries) T=50 compiles and solves on v5e (validated; gap ~1e-7). Round 5
-# lifted the Mosaic scoped-VMEM budget from its 16 MiB compiler default to
-# 112 MB (pallas_ocp.VMEM_LIMIT_BYTES — a 120 MB scratch allocation compiles
-# and runs on this v5e), so the caps below are set by measured compile times
-# and validated runs, not by the old 16 MiB wall. The resident kernel's
-# fully-unrolled stage loops make its COMPILE time scale with T (224 s at
-# T=200 through the remote-compile service), so it keeps a moderate cap and
-# the fori_loop-based streamed kernels (3 s compiles) take over beyond it.
-MAX_LANES_HORIZON = 50
-# With the raised VMEM budget the Mehrotra resident kernel (which keeps a
-# second full set of direction arrays + the round-5 shared-factorization
-# stores) now compiles and solves at T=50 on v5e (validated); it shares the
-# resident cap.
-MAX_LANES_HORIZON_MEHROTRA = 50
-# Tier-1 streaming (A/B via chunked DMA, everything else resident): cap set by
-# the resident vector state against the 112 MB budget; validated compile+solve
-# on v5e at T=200 and T=400 (gap <= 4e-8, finite).
-MAX_STREAM_HORIZON = 400
-# Soft state bounds keep four extra (T+1, nx, L) arrays resident (violation
-# slacks e and the explicit penalty duals nu); validated at T=320.
-MAX_STREAM_HORIZON_SOFT = 320
-# Tier-2 streaming (pallas_ocp.solve_ocp_qp_lanes_streamed2): QP data + state
-# boxes stream per chunk and K spills to HBM between sweeps, so only the IP
-# state vectors stay resident (~90 KB/stage incl. sublane padding). Validated
-# on v5e at T=200 and the cap sizes below.
-MAX_STREAM2_HORIZON = 1024
-MAX_STREAM2_HORIZON_SOFT = 768
-# The in-kernel linearizer is stage-looped (one stage's temporaries live at a
-# time); its output arrays (A: ~100 KB/stage) fit the raised budget across the
-# tier-1 range. Validated on v5e at T=50, T=100, and T=200.
-MAX_FUSED_HORIZON = MAX_STREAM_HORIZON
-
-
-def _lane_width(T: int) -> int:
-    """Lane-tile width. The lane axis is physically padded to 128, so narrowing
-    tiles does NOT reduce VMEM — the lanes path requires T <= MAX_STREAM2_HORIZON
-    (all-resident kernel to MAX_LANES_HORIZON, A/B-streaming kernel to
-    MAX_STREAM_HORIZON, tier-2 streaming beyond; callers fall back to the XLA
-    backend for longer horizons)."""
-    if T > MAX_STREAM2_HORIZON:
-        raise ValueError(
-            f"lanes backend supports horizons up to {MAX_STREAM2_HORIZON} (got {T}); "
-            "use the xla backend for longer horizons"
-        )
-    return LANES
-
-
-def lanes_resident_cap(cfg: SqpConfig) -> int:
-    """Largest horizon served by the all-resident kernel for this config."""
-    return MAX_LANES_HORIZON_MEHROTRA if cfg.qp_mehrotra else MAX_LANES_HORIZON
-
-
-def lanes_horizon_cap(cfg: SqpConfig) -> int:
-    """Largest horizon the lanes backend serves for this config (resident,
-    tier-1 or tier-2 streamed kernel; soft state bounds shrink the caps)."""
-    return MAX_STREAM2_HORIZON_SOFT if cfg.soft_x_penalty is not None else MAX_STREAM2_HORIZON
-
-
-def lanes_serves(cfg: SqpConfig, T: int) -> bool:
-    """True iff the lanes backend serves horizon T for this config WITH full
-    semantics (in particular: soft state bounds stay soft). Dispatchers
-    (parallel/batch.py::batched_gpmpc_step) fall back to the XLA backend when
-    this is False instead of accepting the lanes path's hard-bound
-    degradation."""
-    return T <= lanes_horizon_cap(cfg)
-
-
 def _solve_qp_lanes(qp: LanesQp, cfg: SqpConfig, interpret: bool):
-    """Dispatch one lane tile to the all-resident, tier-1 (A/B-streaming), or
-    tier-2 (fully-streamed) IP kernel by horizon."""
-    T = qp.A.shape[0]
-    kw = dict(
-        n_ip=cfg.qp_iters, adaptive_tol=cfg.qp_tol,
+    return solve_ocp_qp_lanes(
+        qp, n_ip=cfg.qp_iters, adaptive_tol=cfg.qp_tol,
         mehrotra=cfg.qp_mehrotra, soft_rho=cfg.soft_x_penalty,
         interpret=interpret,
     )
-    if T <= lanes_resident_cap(cfg):
-        return solve_ocp_qp_lanes(qp, **kw)
-    soft = cfg.soft_x_penalty is not None
-    if T <= (MAX_STREAM_HORIZON_SOFT if soft else MAX_STREAM_HORIZON):
-        return solve_ocp_qp_lanes_streamed(qp, **kw)
-    if T > (MAX_STREAM2_HORIZON_SOFT if soft else MAX_STREAM2_HORIZON):
-        # Callers gate this (control/gpmpc.py falls back with a warning);
-        # reaching here means the gate was skipped.
-        raise ValueError(
-            f"lanes backend serves horizons up to "
-            f"T={MAX_STREAM2_HORIZON_SOFT if soft else MAX_STREAM2_HORIZON} "
-            f"{'with soft state bounds ' if soft else ''}(got {T}); use the "
-            "xla backend"
-        )
-    return solve_ocp_qp_lanes_streamed2(qp, **kw)
 
 
-def _to_lane_tiles(x: jax.Array, n_tiles: int, lanes: int) -> jax.Array:
-    """(B_pad, ...) -> (n_tiles, ..., lanes)."""
-    x = jnp.moveaxis(x, 0, -1)  # (..., B_pad)
-    x = x.reshape(x.shape[:-1] + (n_tiles, lanes))
-    return jnp.moveaxis(x, -2, 0)  # (n_tiles, ..., lanes)
+def _to_lanes(x: jax.Array) -> jax.Array:
+    """(B, ...) -> (..., B): the kernel's scenario-last layout."""
+    return jnp.moveaxis(x, 0, -1)
 
 
-def _from_lane_tiles(x: jax.Array, B: int) -> jax.Array:
-    """(n_tiles, ..., LANES) -> (B, ...)."""
-    x = jnp.moveaxis(x, 0, -2)  # (..., n_tiles, LANES)
-    x = x.reshape(x.shape[:-2] + (x.shape[-2] * x.shape[-1],))
-    return jnp.moveaxis(x, -1, 0)[:B]
+def _from_lanes(x: jax.Array) -> jax.Array:
+    """(..., B) -> (B, ...)."""
+    return jnp.moveaxis(x, -1, 0)
 
 
-def _kkt_residuals_lanes(A, Bm, defect, qx, ru, U, lu, uu):
-    """ops/sqp.py::kkt_residuals in lanes layout (trailing lane axis).
+def make_linearizer(fd=None, fd_jac3=None, linearize_fn=None):
+    """Whole-batch (X (B,T,nx), U (B,T,nu)) -> (fnext, A, B) evaluator:
+    linearize_fn as given, else vmapped fd_jac3, else vmapped jacfwd of fd."""
+    if linearize_fn is not None:
+        return linearize_fn
+    if fd_jac3 is not None:
+        return jax.vmap(jax.vmap(fd_jac3))
+    fd_jac = jax.vmap(jax.vmap(jax.jacfwd(fd, argnums=(0, 1))))
+    fd_batch = jax.vmap(jax.vmap(fd))
 
-    A (T, nx, nx, L), Bm (T, nx, nu, L), defect (T, nx, L), qx (T+1, nx, L),
-    ru/U/lu/uu (T, nu, L) -> (eq (L,), stat (L,))."""
-    eq = jnp.max(jnp.abs(defect), axis=(0, 1))
+    def linearize(X, U):
+        A, Bm = fd_jac(X, U)
+        return fd_batch(X, U), A, Bm
 
-    def back(lam, ops):
-        A_k, B_k, qx_k, ru_k = ops
-        gu = ru_k + jnp.einsum("iul,il->ul", B_k, lam)
-        lam_new = qx_k + jnp.einsum("ijl,il->jl", A_k, lam)
-        return lam_new, gu
-
-    _, gu = jax.lax.scan(back, qx[-1], (A, Bm, qx[:-1], ru), reverse=True)
-    proj = jnp.clip(U - gu, lu, uu)
-    stat = jnp.max(jnp.abs(U - proj), axis=(0, 1))
-    return eq, stat
+    return linearize
 
 
-class LanesLinearizer(NamedTuple):
-    """Inputs for the in-kernel linearizer (ops/pallas_linearize.py): the
-    family's plant coefficients + GP mean data in kernel-ready form."""
-
-    params8: jax.Array  # (8,) family-specific packing (ResidualSpec.kernel_params)
-    hyp: jax.Array  # (G, 1+D) per-GP [sf2, 1/ell^2 per dim (ARD or repeated)]
-    Zs: jax.Array  # (G, Ms, D) (D family-dependent)
-    alpha: jax.Array  # (G, Ms)
-    use_gp: bool  # static
-    family: str = "quadrotor"  # static; key into pallas_linearize._FAMILY_FC_JAC
-
-
-def sqp_solve_batch_lanes_fused(
-    lin: LanesLinearizer,
-    dt: float,
-    cost: OcpCost,  # xref batched over B; Q/R/scale shared; uref (T, nu) shared
-    bounds: OcpBounds,  # leaves batched over B
-    x0: jax.Array,  # (B, nx)
-    X_init: jax.Array,  # (B, T+1, nx)
-    U_init: jax.Array,  # (B, T, nu)
-    cfg: SqpConfig,
-    interpret: bool = False,
-) -> SqpSolution:
-    """Whole-SQP lanes path: dynamics linearization AND the IP QP run as lane-
-    packed Pallas kernels, with X/U staying in lanes layout across all SQP
-    iterations — no jacfwd, no per-iteration repacking (the round-1 hot spots
-    after the QP moved on-chip).
-    """
-    from gpmpc_tpu.ops.pallas_linearize import linearize_ocp_lanes
-
-    B, Tp1, nx = X_init.shape
-    T = Tp1 - 1
-    nu = U_init.shape[2]
-    dtype = X_init.dtype
-    lanes = _lane_width(T)
-    B_pad = B + ((-B) % lanes)
-    n_tiles = B_pad // lanes
-
-    q_diag_stage = jnp.diagonal(cost.Q)
+def linearized_qp(linearize, cost: OcpCost, bounds: OcpBounds, X, U, lm_reg=0.0):
+    """The QP of one SQP iteration at the iterate (X (B,T+1,nx) with X[:, 0]
+    pinned to x0, U (B,T,nu)), in the kernel's scenario-last layout, and the
+    iterate's per-scenario KKT residuals (eq, stat)."""
+    B = X.shape[0]
+    q_diag_stage = jnp.diagonal(cost.Q)  # (nx,)
     qe_diag = jnp.diagonal(cost.Qe)
     r_diag = jnp.diagonal(cost.R)
-    scale = cost.scale
+    scale = cost.scale  # (T+1,)
     qdiag = jnp.concatenate(
         [scale[:-1, None] * q_diag_stage[None], (scale[-1] * qe_diag)[None]], axis=0
     )  # (T+1, nx)
     rdiag = scale[:-1, None] * r_diag[None]  # (T, nu)
+    big = jnp.asarray(BOUND_INF, X.dtype)
 
-    def pad_b(x):
-        return jnp.pad(x, [(0, B_pad - B)] + [(0, 0)] * (x.ndim - 1))
-
-    pack = lambda x: _to_lane_tiles(pad_b(x), n_tiles, lanes)
-    # One-time packing of everything the SQP loop touches.
-    X_l = pack(X_init)  # (n_tiles, T+1, nx, L)
-    U_l = pack(U_init)
-    x0_l = pack(x0)  # (n_tiles, nx, L)
-    xref_l = pack(cost.xref)
-    lx_l, ux_l = pack(bounds.lx), pack(bounds.ux)
-    lu_l, uu_l = pack(bounds.lu), pack(bounds.uu)
-    qdiag_l = jnp.broadcast_to(qdiag[None, :, :, None], (n_tiles, T + 1, nx, lanes))
-    rdiag_l = jnp.broadcast_to(rdiag[None, :, :, None], (n_tiles, T, nu, lanes))
-    uref_l = jnp.broadcast_to(cost.uref[None, :, :, None], (n_tiles, T, nu, lanes))
-
-    big = jnp.asarray(BOUND_INF, dtype)
-
-    def tile_iter(args):
-        X, U, x0_t, xref, lx, ux, lu, uu = args
-        X = X.at[0].set(x0_t)
-        fnext, A, Bm = linearize_ocp_lanes(
-            lin.params8, lin.hyp, lin.Zs, lin.alpha, X, U,
-            dt=dt, use_gp=lin.use_gp, interpret=interpret, family=lin.family,
-        )
-        defect = fnext - X[1:]
-        qx = qdiag_l[0] * (X - xref)
-        ru = rdiag_l[0] * (U - uref_l[0])
-        # LM damping: Hessian diagonal only, gradient/KKT stay undamped
-        # (ops/sqp.py SqpConfig.lm_reg).
-        qdiag_h = qdiag_l[0] + cfg.lm_reg if cfg.lm_reg else qdiag_l[0]
-        rdiag_h = rdiag_l[0] + cfg.lm_reg if cfg.lm_reg else rdiag_l[0]
-        eq, stat = _kkt_residuals_lanes(A, Bm, defect, qx, ru, U, lu, uu)
-        lx_d = (lx - X).at[0].set(-big)
-        ux_d = (ux - X).at[0].set(big)
-        qp = LanesQp(
-            A=A, B=Bm, r=defect, qdiag=qdiag_h, qx=qx, rdiag=rdiag_h, ru=ru,
-            lx=lx_d, ux=ux_d, lu=lu - U, uu=uu - U,
-        )
-        dx, du, gap = _solve_qp_lanes(qp, cfg, interpret)
-        return dx, du, gap, eq, stat
-
-    def body(carry):
-        X, U, converged, step_norm, qp_gap, n_iters, eq_res, stat_res = carry
-        dx, du, gap, new_eq, new_stat = jax.lax.map(
-            tile_iter, (X, U, x0_l, xref_l, lx_l, ux_l, lu_l, uu_l)
-        )
-        new_step = jnp.maximum(
-            jnp.max(jnp.abs(dx), axis=(1, 2)), jnp.max(jnp.abs(du), axis=(1, 2))
-        )  # (n_tiles, L)
-        active = jnp.logical_not(converged)  # (n_tiles, L)
-        act_b = active[:, None, None, :]
-        X = jnp.where(act_b, X + dx, X)
-        U = jnp.where(act_b, U + du, U)
-        step_norm = jnp.where(active, new_step, step_norm)
-        qp_gap = jnp.where(active, gap, qp_gap)
-        eq_res = jnp.where(active, new_eq, eq_res)
-        stat_res = jnp.where(active, new_stat, stat_res)
-        n_iters = n_iters + active.astype(jnp.int32)
-        step_ok = new_step < cfg.step_tol
-        if cfg.kkt_tol is not None:
-            step_ok = jnp.logical_and(
-                step_ok,
-                jnp.logical_and(new_eq < cfg.kkt_tol, new_stat < cfg.kkt_tol),
-            )
-        converged = jnp.logical_or(converged, step_ok)
-        return (X, U, converged, step_norm, qp_gap, n_iters, eq_res, stat_res)
-
-    init = (
-        X_l, U_l,
-        jnp.zeros((n_tiles, lanes), bool),
-        jnp.full((n_tiles, lanes), jnp.inf, dtype),
-        jnp.full((n_tiles, lanes), jnp.inf, dtype),
-        jnp.zeros((n_tiles, lanes), jnp.int32),
-        jnp.full((n_tiles, lanes), jnp.inf, dtype),
-        jnp.full((n_tiles, lanes), jnp.inf, dtype),
-    )
-    if cfg.early_exit:
-        def cond(carry):
-            converged, n_iters = carry[2], carry[5]
-            return jnp.logical_and(
-                jnp.max(n_iters) < cfg.sqp_iters, jnp.logical_not(jnp.all(converged))
-            )
-
-        X, U, converged, step_norm, qp_gap, n_iters, eq_res, stat_res = (
-            jax.lax.while_loop(cond, body, init)
-        )
-    else:
-        carry = init
-        for _ in range(cfg.sqp_iters):
-            carry = body(carry)
-        X, U, converged, step_norm, qp_gap, n_iters, eq_res, stat_res = carry
-
-    X = X.at[:, 0, :, :].set(x0_l)
-    unpack = lambda x: _from_lane_tiles(x, B)
-    lane_scalar = lambda x: _from_lane_tiles(x[:, None, :], B)[:, 0]
-    return SqpSolution(
-        X=unpack(X), U=unpack(U),
-        step_norm=lane_scalar(step_norm),
-        qp_gap=lane_scalar(qp_gap),
-        n_iters=lane_scalar(n_iters),
-        eq_res=lane_scalar(eq_res),
-        stat_res=lane_scalar(stat_res),
-        converged=lane_scalar(converged),
-    )
+    with jax.named_scope("linearize"):
+        fnext, A, Bm = linearize(X[:, :-1], U)  # (B,T,nx), (B,T,nx,nx), (B,T,nx,nu)
+    defect = fnext - X[:, 1:]
+    qx = qdiag[None] * (X - cost.xref)  # (B, T+1, nx)
+    ru = rdiag[None] * (U - cost.uref)
+    # Per-scenario KKT residuals of the current iterate (ops/sqp.py).
+    eq, stat = jax.vmap(kkt_residuals)(A, Bm, defect, qx, ru, U, bounds.lu, bounds.uu)
+    lx = (bounds.lx - X).at[:, 0, :].set(-big)
+    ux = (bounds.ux - X).at[:, 0, :].set(big)
+    # LM damping: Hessian diagonal only, gradient/KKT stay undamped
+    # (ops/sqp.py SqpConfig.lm_reg).
+    qdiag_h = jnp.broadcast_to((qdiag + lm_reg)[None], (B,) + qdiag.shape)
+    rdiag_h = jnp.broadcast_to((rdiag + lm_reg)[None], (B,) + rdiag.shape)
+    qp = LanesQp(*(_to_lanes(a) for a in (
+        A, Bm, defect, qdiag_h, qx, rdiag_h, ru, lx, ux, bounds.lu - U, bounds.uu - U,
+    )))
+    return qp, (eq, stat)
 
 
 def sqp_solve_batch_lanes(
@@ -335,83 +118,18 @@ def sqp_solve_batch_lanes(
     (fnext, A, B) evaluator, for dynamics that differ per scenario (e.g. a
     per-scenario GP population); overrides fd/fd_jac3.
     """
-    B, Tp1, nx = X_init.shape
-    T = Tp1 - 1
-    nu = U_init.shape[2]
+    B = X_init.shape[0]
     dtype = X_init.dtype
-    lanes = _lane_width(T)
-    B_pad = B + ((-B) % lanes)
-    n_tiles = B_pad // lanes
-
-    q_diag_stage = jnp.diagonal(cost.Q)  # (nx,)
-    qe_diag = jnp.diagonal(cost.Qe)
-    r_diag = jnp.diagonal(cost.R)
-    scale = cost.scale  # (T+1,)
-    qdiag = jnp.concatenate(
-        [scale[:-1, None] * q_diag_stage[None], (scale[-1] * qe_diag)[None]], axis=0
-    )  # (T+1, nx)
-    rdiag = scale[:-1, None] * r_diag[None]  # (T, nu)
-
-    if linearize_fn is not None:
-        linearize = linearize_fn
-    elif fd_jac3 is None:
-        fd_jac = jax.vmap(jax.vmap(jax.jacfwd(fd, argnums=(0, 1))))
-        fd_batch = jax.vmap(jax.vmap(fd))
-
-        def linearize(X, U):
-            A, Bm = fd_jac(X, U)
-            return fd_batch(X, U), A, Bm
-    else:
-        linearize = jax.vmap(jax.vmap(fd_jac3))
-
-    def pad_b(x):
-        return jnp.pad(x, [(0, B_pad - B)] + [(0, 0)] * (x.ndim - 1))
-
-    big = jnp.asarray(BOUND_INF, dtype)
+    linearize = make_linearizer(fd, fd_jac3, linearize_fn)
 
     def body(carry, _):
         X, U, converged, step_norm, qp_gap, n_iters, eq_res, stat_res = carry
         X = X.at[:, 0, :].set(x0)
-
-        fnext, A, Bm = linearize(X[:, :-1], U)  # (B,T,nx), (B,T,nx,nx), (B,T,nx,nu)
-        defect = fnext - X[:, 1:]
-
-        ex = X - cost.xref
-        eu = U - cost.uref
-        qx = qdiag[None] * ex  # (B, T+1, nx)
-        ru = rdiag[None] * eu
-
-        # Per-scenario KKT residuals of the current iterate (ops/sqp.py).
-        new_eq, new_stat = jax.vmap(kkt_residuals)(
-            A, Bm, defect, qx, ru, U, bounds.lu, bounds.uu
-        )
-
-        lx = bounds.lx - X
-        ux = bounds.ux - X
-        lx = lx.at[:, 0, :].set(-big)
-        ux = ux.at[:, 0, :].set(big)
-        lu = bounds.lu - U
-        uu = bounds.uu - U
-
-        tiles = LanesQp(
-            A=_to_lane_tiles(pad_b(A), n_tiles, lanes),
-            B=_to_lane_tiles(pad_b(Bm), n_tiles, lanes),
-            r=_to_lane_tiles(pad_b(defect), n_tiles, lanes),
-            qdiag=_to_lane_tiles(pad_b(jnp.broadcast_to((qdiag + cfg.lm_reg)[None], (B,) + qdiag.shape)), n_tiles, lanes),
-            qx=_to_lane_tiles(pad_b(qx), n_tiles, lanes),
-            rdiag=_to_lane_tiles(pad_b(jnp.broadcast_to((rdiag + cfg.lm_reg)[None], (B,) + rdiag.shape)), n_tiles, lanes),
-            ru=_to_lane_tiles(pad_b(ru), n_tiles, lanes),
-            lx=_to_lane_tiles(pad_b(lx), n_tiles, lanes),
-            ux=_to_lane_tiles(pad_b(ux), n_tiles, lanes),
-            lu=_to_lane_tiles(pad_b(lu), n_tiles, lanes),
-            uu=_to_lane_tiles(pad_b(uu), n_tiles, lanes),
-        )
-        dx_t, du_t, gap_t = jax.lax.map(
-            lambda t: _solve_qp_lanes(t, cfg, interpret), tiles
-        )
-        dx = _from_lane_tiles(dx_t, B)  # (B, T+1, nx)
-        du = _from_lane_tiles(du_t, B)
-        gap = gap_t.reshape(-1)[:B]  # (B,) per-scenario complementarity gap
+        qp, (new_eq, new_stat) = linearized_qp(linearize, cost, bounds, X, U, cfg.lm_reg)
+        with jax.named_scope("qp_kernel"):
+            dx, du, gap = _solve_qp_lanes(qp, cfg, interpret)
+        dx = _from_lanes(dx)  # (B, T+1, nx)
+        du = _from_lanes(du)
 
         new_step = jnp.maximum(
             jnp.max(jnp.abs(dx), axis=(1, 2)), jnp.max(jnp.abs(du), axis=(1, 2))

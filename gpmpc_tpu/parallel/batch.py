@@ -1,12 +1,12 @@
-"""Scenario-batched GP-MPC: vmapped controller steps and fused on-device episodes.
+"""Scenario-batched GP-MPC: batched controller steps and fused on-device episodes.
 
-This is where the TPU throughput story lives (BASELINE.md north star: >=1e4
-GP-MPC solves/s): a single controller solve works on 12x12/12x4 blocks that cannot
-fill the MXU, so we batch thousands of scenarios with `vmap` — every small GEMM in
-the Riccati/IP stack becomes a large batched GEMM — and shard the scenario axis
-over the device mesh with `jit(in_shardings=...)`, letting XLA insert ICI
-collectives where needed. The reference has no counterpart (it solves one OCP per
-step through a ctypes boundary, SURVEY.md §2.3).
+A single controller solve works on 12x12/12x4 blocks, far too small to occupy
+an accelerator, so throughput comes from solving thousands of scenarios at
+once: on a GPU through the scenario-blocked Pallas QP kernel
+(ops/pallas_ocp.py), on the CPU through `vmap` of the plain XLA step. The
+scenario axis shards over a device mesh (`make_batched_controller_step`). The
+reference has no counterpart (it solves one OCP per step through a ctypes
+boundary, SURVEY.md §2.3).
 
 `batched_episode` additionally fuses the env into the controller scan, so a whole
 closed-loop episode (controller solve -> plant integration -> next obs) for B
@@ -32,80 +32,80 @@ from gpmpc_tpu.ops.sqp import SqpConfig
 
 
 class DispatchDecision(NamedTuple):
-    """Outcome of `dispatch_decision`. `degraded` is the structured warning
-    policy: True iff the path is below what was requested for a reason the
-    user did NOT explicitly configure (horizon caps, missing family closure,
-    GP population) — the silent-cliff class the one-shot warnings exist for.
-    Unpacks as a (path, reason[, degraded]) tuple for existing callers."""
+    """Outcome of `dispatch_decision`: the path ("lanes" = the Pallas QP
+    kernel, "xla" = vmapped `select_action`), why, whether the kernel runs in
+    interpret mode, and whether the path is below what the caller asked for
+    (`backend="lanes"` on a CPU without interpret mode), which warns once."""
 
     path: str
     reason: str
+    interpret: bool = False
     degraded: bool = False
 
 
+BACKENDS = ("auto", "lanes", "xla")
+
+
 def dispatch_decision(
-    cfg: SqpConfig, spec, T: int, gp_batched: bool = False, backend: str = "lanes"
+    backend: str = "auto",
+    platform: str | None = None,
+    interpret: bool = False,
+    gp_batched: bool = False,
 ) -> DispatchDecision:
-    """(path, reason, degraded) the dispatcher will take for this configuration.
+    """The one place that decides the step path from the platform.
 
-    The single source of truth for backend dispatch — `batched_gpmpc_step`
-    executes exactly this decision, the fallback warnings fire iff `degraded`,
-    `tests/test_dispatch.py` asserts every cell, and the README dispatch
-    matrix is generated from it (`scripts/gen_dispatch_table.py`). Paths:
+    `batched_gpmpc_step`, `batched_episode`, `make_batched_controller_step`
+    and `GPMPC` execute exactly this decision; `tests/test_dispatch.py`
+    asserts every cell and the README dispatch matrix is generated from it
+    (`scripts/gen_dispatch_table.py`).
 
-      "lanes-fused"  whole-SQP Pallas path (in-kernel linearizer + lanes QP)
-      "lanes"        lanes QP with XLA linearization (jacfwd)
-      "xla"          fully-XLA path (vmapped select_action)
+      gpu  -> "lanes": the Pallas QP kernel, compiled for the card (a kernel
+              that does not compile fails; there is no fallback).
+      cpu  -> "xla", unless interpret=True is passed explicitly: then the
+              same kernel runs in Pallas interpret mode (the CPU test path).
+      any other platform raises.
+    backend="xla" takes the XLA path on any supported platform.
     """
-    from gpmpc_tpu.ops.sqp_lanes import (
-        MAX_FUSED_HORIZON, lanes_horizon_cap, lanes_serves,
-    )
-
-    if backend != "lanes":
-        return DispatchDecision("xla", "requested explicitly")
-    if not lanes_serves(cfg, T):
-        soft = " with soft state bounds" if cfg.soft_x_penalty is not None else ""
-        return DispatchDecision("xla", (
-            f"horizon T={T} exceeds the lanes cap ({lanes_horizon_cap(cfg)}{soft}); "
-            "the XLA path serves any horizon (orders of magnitude slower per "
-            "solve — measured 200x at T=200 — see README dispatch matrix)"
-        ), degraded=True)
-    if gp_batched:
-        return DispatchDecision("lanes", (
-            "per-scenario GP population: linearization runs vmapped under XLA "
-            "(each scenario has its own Gram); QP + tightening stay in lanes"
-        ), degraded=True)
-    if not cfg.kernel_linearize:
-        return DispatchDecision(
-            "lanes", "kernel_linearize disabled; jacfwd linearization + lanes QP"
+    if platform is None:
+        platform = jax.default_backend()
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+    if platform not in ("gpu", "cpu"):
+        raise ValueError(
+            f"unsupported platform {platform!r}: the QP kernel is built for "
+            "NVIDIA GPUs (Pallas/Triton); use a GPU or the CPU"
         )
-    if not spec.supports_kernel_linearize:
-        return DispatchDecision("lanes", (
-            f"model family '{spec.name}' has no in-kernel linearizer closure "
-            "(ops/pallas_linearize.py registry); jacfwd linearization + lanes QP"
-        ), degraded=True)
-    if T > MAX_FUSED_HORIZON:
-        return DispatchDecision("lanes", (
-            f"horizon T={T} exceeds the fused-path cap ({MAX_FUSED_HORIZON}); "
-            "jacfwd linearization + lanes QP"
-        ), degraded=True)
+    if backend == "xla":
+        return DispatchDecision("xla", "requested explicitly")
+    if platform == "gpu":
+        if interpret:
+            raise ValueError(
+                "interpret mode is the CPU test path; on a GPU the kernel compiles"
+            )
+        reason = "Pallas QP kernel, jacfwd linearization under XLA"
+        if gp_batched:
+            reason += " (per-scenario GP population: each scenario's own Jacobians)"
+        return DispatchDecision("lanes", reason)
+    if interpret:
+        return DispatchDecision(
+            "lanes", "Pallas QP kernel in interpret mode (requested explicitly)",
+            interpret=True,
+        )
     return DispatchDecision(
-        "lanes-fused", "in-kernel linearizer + lanes QP (the flagship path)"
+        "xla",
+        "no GPU: the QP kernel runs on the CPU only in interpret mode "
+        "(pass interpret=True)",
+        degraded=backend == "lanes",
     )
 
 
-# One-time structured fallback warnings (VERDICT r3 item 6: no silent 150x
-# cliff). Keyed by reason so each distinct degradation fires once per process.
+# One-time warnings, keyed by reason: each distinct degradation fires once per
+# process.
 _DISPATCH_WARNED: set[str] = set()
 
 
 def _warn_dispatch(decision: DispatchDecision):
-    # Explicit user choices (backend="xla", kernel_linearize=False) carry
-    # degraded=False from dispatch_decision and stay silent; every genuine
-    # degradation warns once per distinct reason.
-    if not decision.degraded:
-        return
-    if decision.reason in _DISPATCH_WARNED:
+    if not decision.degraded or decision.reason in _DISPATCH_WARNED:
         return
     _DISPATCH_WARNED.add(decision.reason)
     import warnings
@@ -124,44 +124,53 @@ def batched_gpmpc_step(
     gp: GpModel,
     states: MpcState,  # leaves with leading batch axis B
     obs: jax.Array,  # (B, nx)
-    backend: str = "xla",
-    var_backend: str = "auto",
+    backend: str = "auto",
     var_bf16: bool = False,
+    interpret: bool = False,
 ):
-    """One GP-MPC solve for B scenarios. consts/gp are broadcast (replicated).
+    """One GP-MPC solve for B scenarios. consts/gp are broadcast (replicated),
+    or carry a leading B axis (a per-scenario GP population).
 
-    backend="lanes" routes QP solves through the lane-packed Pallas kernel
-    (ops/pallas_ocp.py) — the fast path on TPU for B >= 128. var_backend /
-    var_bf16 select the tightening-variance path (control/gpmpc.py::
-    batched_variances). Dispatch preserves SEMANTICS first (horizons past the
-    lanes cap for this config take the XLA path, which serves any horizon);
-    every degradation from the requested backend warns once with the reason
-    (`dispatch_decision`).
+    The path is `dispatch_decision(backend, interpret=...)`: the Pallas QP
+    kernel on a GPU (control/gpmpc.py::batched_select_action_lanes), the
+    vmapped XLA `select_action` on the CPU. var_bf16 selects the bf16
+    tightening-variance GEMM (control/gpmpc.py::gp_variances).
     """
-    T = consts.mpc.uref.shape[0]
     gp_batched = gp.Zs.ndim == 4  # per-scenario GP population
-    spec = gpmpc_mod.model_spec(model)
-    decision = dispatch_decision(cfg, spec, T, gp_batched, backend)
-    path = decision.path
+    decision = dispatch_decision(backend, interpret=interpret, gp_batched=gp_batched)
     _warn_dispatch(decision)
-    if path.startswith("lanes"):
+    if decision.path == "lanes":
         return gpmpc_mod.batched_select_action_lanes(
             model, cfg, consts, gp, states, obs,
-            var_backend=var_backend, var_bf16=var_bf16,
+            var_bf16=var_bf16, interpret=decision.interpret,
         )
     step = partial(gpmpc_mod.select_action, model, cfg)
     gp_axis = 0 if gp_batched else None
     return jax.vmap(step, in_axes=(None, gp_axis, 0, 0))(consts, gp, states, obs)
 
 
-def make_batched_controller_step(model, cfg, mesh=None):
-    """jit-compiled batched step; if `mesh` is given, the batch axis is sharded."""
-    fn = partial(batched_gpmpc_step, model, cfg)
+def make_batched_controller_step(model, cfg, mesh=None, backend="auto", interpret=False):
+    """jit-compiled batched step; if `mesh` is given, the batch axis is sharded
+    over its first axis.
+
+    On the kernel path the step runs under `shard_map`: XLA does not partition
+    a Pallas custom call, and would otherwise gather the whole batch onto every
+    device. Each device solves its own scenario shard; consts and gp are
+    replicated. The XLA path is partitioned by `jit` from its shardings."""
+    fn = partial(batched_gpmpc_step, model, cfg, backend=backend, interpret=interpret)
     if mesh is None:
         return jax.jit(fn)
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    batched = NamedSharding(mesh, P(mesh.axis_names[0]))
+    axis = mesh.axis_names[0]
+    if dispatch_decision(backend, interpret=interpret).path == "lanes":
+        return jax.jit(jax.shard_map(
+            fn, mesh=mesh,
+            in_specs=(P(), P(), P(axis), P(axis)),
+            out_specs=(P(axis), P(axis), P(axis)),
+            check_vma=False,
+        ))
+    batched = NamedSharding(mesh, P(axis))
     repl = NamedSharding(mesh, P())
     return jax.jit(
         fn,
@@ -186,7 +195,7 @@ def batched_episode(
     n_steps: int,
     use_gp: bool = True,
     param_scale: float | None = None,
-    backend: str = "xla",
+    backend: str = "auto",
     interpret: bool = False,
     gp_batched: bool = False,
     env_mod=drone,
@@ -206,20 +215,19 @@ def batched_episode(
     scenario runs its OWN GP model — a population of independently-learned
     controllers evaluated as one program (the multi-seed learning sweep,
     parallel/sweep.py, rides this; the reference can only run such populations
-    as sequential processes). Supported on both backends: the lanes path keeps
-    the QP/tightening kernels lane-packed and runs the per-scenario GP algebra
-    vmapped under XLA.
+    as sequential processes). Supported on both paths: the kernel path keeps
+    the QPs in the kernel and runs the per-scenario GP algebra vmapped under
+    XLA.
 
-    backend="lanes" (requires use_gp=True) runs the controller step through the
-    lane-packed Pallas kernels with the batch axis inside the scan — the
-    on-device episode shape for TPU. Note: XLA cannot hoist the layout
-    transforms feeding Pallas custom-calls out of a scan body, which costs ~2x
-    per step vs a host-chained loop of the same kernels (measured, see
-    bench.py BENCH_FUSED) — still ~30x the XLA path inside the same scan.
+    The GP-MPC step takes the path `dispatch_decision(backend, interpret=...)`
+    picks (on the kernel path the batch axis sits inside the scan); the
+    prior-only MPC (use_gp=False) always runs the XLA path.
     """
-    if backend == "lanes":
-        if not use_gp:
-            raise ValueError("backend='lanes' requires use_gp=True (GP-MPC step)")
+    if not use_gp and backend == "lanes":
+        raise ValueError("backend='lanes' requires use_gp=True (GP-MPC step)")
+    if use_gp and dispatch_decision(
+        backend, interpret=interpret, gp_batched=gp_batched
+    ).path == "lanes":
         return _batched_episode_lanes(
             model, cfg, env_params, consts, gp, keys, n_steps,
             param_scale=param_scale, interpret=interpret, env_mod=env_mod,
@@ -270,7 +278,7 @@ def _batched_episode_lanes(
     interpret: bool,
     env_mod=drone,
 ) -> EpisodeResult:
-    """Batch-inside-scan episode runner on the lane-packed Pallas backend.
+    """Batch-inside-scan episode runner on the Pallas QP kernel path.
     `gp` leaves may carry a leading per-scenario axis (GP populations)."""
     k_env, k_par = jax.vmap(jax.random.split, out_axes=1)(keys)
     plant0 = env_mod.params_to_array(env_params.params)

@@ -1,10 +1,12 @@
 """Device mesh / topology module.
 
 The reference has no distributed layer at all (SURVEY.md §2.3: single process,
-single env, the only concurrency being OpenMP inside acados). For the TPU build,
-scale-out is a first-class component: scenario batches are sharded over a
-`jax.sharding.Mesh` so that per-scenario OCP solves ride the MXU in parallel and
-collectives ride ICI within a slice / DCN across hosts. This module owns mesh
+single env, the only concurrency being OpenMP inside acados). Here scale-out
+is a first-class component: scenario batches are sharded over a
+`jax.sharding.Mesh` so that per-scenario OCP solves run on every device in
+parallel, with collectives over NVLink within a host and the network across
+hosts. Every device reaches every other at the same rate, so the mesh is a
+plain 1-D scenario axis. This module owns mesh
 construction, sharding specs for the scenario axis, and multi-host runtime init —
 the moral replacement for an NCCL/MPI "communication backend": with XLA the
 collectives are compiler-inserted from sharding annotations, so the only runtime
@@ -62,7 +64,7 @@ def batch_spec(mesh: Mesh, axis: str = DATA_AXIS) -> NamedSharding:
 def init_distributed(coordinator_address: str | None = None, num_processes: int | None = None,
                      process_id: int | None = None):
     """Multi-host (DCN) runtime init. Wraps `jax.distributed.initialize`; with no
-    arguments, relies on the TPU environment's auto-bootstrap."""
+    arguments, relies on JAX's cluster auto-detection."""
     kwargs = {}
     if coordinator_address is not None:
         kwargs = dict(

@@ -5,7 +5,7 @@ process per seed (sequential: episode loop -> GPyTorch fit -> acados recompile,
 per seed). Here the *entire* learning cycle — closed-loop data collection,
 transition sampling, dataset accumulation, GP ensemble refit, and the held-out
 evaluation episode — is pure jnp, so S seeds run as one vmapped, jitted program
-per epoch on the TPU: every seed's episodes batch into the same scanned XLA
+per epoch on one device: every seed's episodes batch into the same scanned XLA
 program (`parallel/batch.py::batched_episode(gp_batched=True)`), and every
 seed's 3-GP ensemble trains inside one `vmap(train_gp_models)`.
 
@@ -80,9 +80,9 @@ def seed_sweep(
     `prior_params` is accepted for API compatibility but unused — the thrust
     map now rides the spec's own make_targets (the model's prior parameters).
 
-    backend="lanes" routes every episode's controller steps through the
-    lane-packed Pallas QP/tightening kernels (per-seed GP algebra runs vmapped
-    under XLA) — the fast path for statistically meaningful seed counts on TPU.
+    backend takes the path of parallel/batch.py::dispatch_decision: on a GPU
+    every episode's QPs go through the Pallas QP kernel (per-seed GP algebra
+    runs vmapped under XLA).
 
     With `mesh` (a 1-D `jax.sharding.Mesh`), the seed axis is sharded over the
     mesh's devices: every per-seed leaf (GP ensemble, dataset buffer, keys)

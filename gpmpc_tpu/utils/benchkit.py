@@ -1,12 +1,15 @@
 """Shared helpers for benchmarks and entry points.
 
 Consolidates the reference prior-parameter dict (single source of truth:
-models/quadrotor.PRIOR_PARAMS ≙ scripts/gp_mpc_config.yaml:9-17 of the reference)
-and the synthetic residual dataset + trained GpModel used by bench.py,
-scripts/bench_scaling.py, scripts/run_multihost.py, and __graft_entry__.py.
+models/quadrotor.PRIOR_PARAMS ≙ scripts/gp_mpc_config.yaml:9-17 of the reference),
+the synthetic residual datasets + trained GpModels, and `build_problem`, the
+closed-loop problem of one plant family that bench.py, chip_smoke.py and the
+GPU tests run.
 """
 
 from __future__ import annotations
+
+from typing import Callable, NamedTuple
 
 import jax
 import jax.numpy as jnp
@@ -129,3 +132,86 @@ def synthetic_twolink_gp_model(
         )
     )
     return fit(data, jax.random.PRNGKey(seed))
+
+
+class Problem(NamedTuple):
+    """A closed-loop GP-MPC problem: controller, trained GP and plant."""
+
+    env: object
+    model: object
+    ctrl: object  # control/gpmpc.py::GPMPC (carries cfg and consts)
+    gp: object
+    env_params: object
+    env_step: Callable
+    env_reset: Callable
+
+
+# The bench numerical settings: sqp 6 / qp 10, Mehrotra, adaptive IP exit at
+# 1e-6 (acados's own default tolerances; the reference sets only iteration
+# caps, /root/reference/gpmpc/mpc.py:113-120).
+BENCH_SQP = dict(sqp_iters=6, qp_iters=10)
+BENCH_QP_TOL = 1e-6
+
+
+def build_problem(
+    family: str = "quadrotor",
+    horizon: int = 25,
+    gp_points: int = 128,
+    gp_inducing: int = 40,
+    gp_data: int | None = None,
+    n_train: int = 50,
+) -> Problem:
+    """One family's closed-loop problem at the given size. The defaults are
+    the reference configuration: quadrotor, T=25, 3 GPs with 40 FITC inducing
+    points over a 128-point padded GP buffer. The controller's cfg carries the
+    bench numerical settings (BENCH_SQP, Mehrotra, BENCH_QP_TOL)."""
+    from gpmpc_tpu.control.gpmpc import GPMPC
+
+    gp_data = min(gp_points if gp_data is None else gp_data, gp_points)
+    gp_kw = dict(
+        max_points=gp_points, max_inducing=gp_inducing, n_data=gp_data, n_train=n_train
+    )
+    ctrl_kw = dict(
+        horizon=horizon, sparse_gp=True, prob=0.95, max_gp_samples=gp_inducing,
+        seed=1, max_gp_points=gp_points, **BENCH_SQP,
+    )
+    if family == "twolink":
+        from gpmpc_tpu.envs import twolink_env as env_mod
+        from gpmpc_tpu.models import twolink as twolink_mod
+
+        env = env_mod.TwoLinkTrackEnv(env_mod.EnvParams.default())
+        model = twolink_mod.symbolic_twolink(dt=0.02)
+        ctrl = GPMPC(
+            model, env.trajectory, None, q_mpc=[20.0, 20.0, 0.5, 0.5],
+            r_mpc=[0.1, 0.1], lm_reg=0.5,
+            bounds=(twolink_mod.state_bounds(), twolink_mod.input_bounds()), **ctrl_kw,
+        )
+        gp = synthetic_twolink_gp_model(**gp_kw)
+    elif family == "cartpole":
+        from gpmpc_tpu.envs import cartpole_env as env_mod
+        from gpmpc_tpu.models import cartpole as cartpole_mod
+
+        env = env_mod.CartpoleTrackEnv(env_mod.EnvParams.default())
+        model = cartpole_mod.symbolic_cartpole(dt=0.02)
+        ctrl = GPMPC(
+            model, env.trajectory, None, q_mpc=[5.0, 0.1, 20.0, 0.5], r_mpc=[0.05],
+            bounds=(cartpole_mod.state_bounds(), cartpole_mod.input_bounds()), **ctrl_kw,
+        )
+        gp = synthetic_cartpole_gp_model(**gp_kw)
+    elif family == "quadrotor":
+        from gpmpc_tpu.envs import drone as env_mod
+        from gpmpc_tpu.models.symbolic import symbolic_attitude
+
+        prior_params = reference_prior_dict()
+        env = env_mod.DroneFigureEightEnv()
+        model = symbolic_attitude(dt=0.02, params=prior_params)
+        ctrl = GPMPC(
+            model, env.trajectory, prior_params, q_mpc=Q_MPC, r_mpc=R_MPC, **ctrl_kw
+        )
+        # Train the GPs on a synthetic residual dataset at the requested scale
+        # so the problem exercises the real augmented dynamics + tightening.
+        gp = synthetic_gp_model(**gp_kw)
+    else:
+        raise ValueError(f"unknown family {family!r}")
+    ctrl.cfg = ctrl.cfg._replace(qp_mehrotra=True, qp_tol=BENCH_QP_TOL)
+    return Problem(env, model, ctrl, gp, env.p, env_mod.env_step, env_mod.env_reset)

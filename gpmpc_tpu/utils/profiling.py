@@ -1,7 +1,7 @@
 """Profiling and runtime telemetry.
 
 The reference's tracing is `time.perf_counter` around `select_action`
-(/root/reference/scripts/run_gp_mpc.py:55-57) — wall-clock only. TPU-native
+(/root/reference/scripts/run_gp_mpc.py:55-57) — wall-clock only. The
 replacement (SURVEY.md §5): `jax.profiler` trace capture for per-kernel timelines,
 a lightweight phase timer with the same mean/std/max semantics as the reference's
 runtime stats (first sample dropped, ≙ plotting.py:10-37), and a solves/sec

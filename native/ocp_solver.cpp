@@ -2,7 +2,7 @@
 //
 // This is the framework's native-runtime component, playing the role acados/HPIPM
 // play in the reference (/root/reference/gpmpc/mpc.py:58 loads a code-generated C
-// solver through ctypes). Here the native solver is NOT the TPU compute path — the
+// solver through ctypes). Here the native solver is NOT the accelerator compute path — the
 // jitted JAX/Pallas solvers are — it serves as:
 //   1. an algorithm-independent oracle for the JAX solvers' unit tests
 //      (same math, independently implemented, double precision),

@@ -10,7 +10,6 @@ and the dispatcher cannot drift apart. Regenerate with:
 
 from __future__ import annotations
 
-import dataclasses
 import os
 import sys
 from pathlib import Path
@@ -21,51 +20,24 @@ os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
 
 def main():
-    from gpmpc_tpu.models.residual import QUADROTOR_SPEC
-    from gpmpc_tpu.ops.sqp import SqpConfig
-    from gpmpc_tpu.ops.sqp_lanes import (
-        MAX_FUSED_HORIZON,
-        MAX_STREAM_HORIZON_SOFT,
-        MAX_STREAM2_HORIZON,
-        MAX_STREAM2_HORIZON_SOFT,
-    )
     from gpmpc_tpu.parallel.batch import dispatch_decision
 
-    cfg = SqpConfig(sqp_iters=6, qp_iters=10, kernel_linearize=True)
-    soft = cfg._replace(soft_x_penalty=10.0)
-    # The missing-closure row uses a placeholder family name: QUADROTOR_SPEC
-    # mutated in place would render "family 'quadrotor' has no ... closure" in
-    # the README, which is false for the real quadrotor.
-    noclosure = dataclasses.replace(
-        QUADROTOR_SPEC, name="custom", supports_kernel_linearize=False
-    )
     rows = [
-        ("reference default (T=25, hard bounds)", cfg, QUADROTOR_SPEC, 25, False, "lanes"),
-        (f"largest fused horizon (T={MAX_FUSED_HORIZON})", cfg, QUADROTOR_SPEC,
-         MAX_FUSED_HORIZON, False, "lanes"),
-        (f"past the fused cap (T={MAX_FUSED_HORIZON + 1})", cfg, QUADROTOR_SPEC,
-         MAX_FUSED_HORIZON + 1, False, "lanes"),
-        (f"largest lanes horizon (T={MAX_STREAM2_HORIZON})", cfg, QUADROTOR_SPEC,
-         MAX_STREAM2_HORIZON, False, "lanes"),
-        (f"past the lanes cap (T={MAX_STREAM2_HORIZON + 1})", cfg, QUADROTOR_SPEC,
-         MAX_STREAM2_HORIZON + 1, False, "lanes"),
-        (f"soft bounds, T={MAX_STREAM_HORIZON_SOFT} (fused range)", soft,
-         QUADROTOR_SPEC, MAX_STREAM_HORIZON_SOFT, False, "lanes"),
-        (f"soft bounds, T={MAX_STREAM2_HORIZON_SOFT} (soft cap)", soft,
-         QUADROTOR_SPEC, MAX_STREAM2_HORIZON_SOFT, False, "lanes"),
-        (f"soft bounds, T={MAX_STREAM2_HORIZON_SOFT + 1}", soft, QUADROTOR_SPEC,
-         MAX_STREAM2_HORIZON_SOFT + 1, False, "lanes"),
-        ("per-scenario GP population", cfg, QUADROTOR_SPEC, 25, True, "lanes"),
-        ("family without a kernel-linearizer closure", cfg, noclosure, 25, False, "lanes"),
-        ("kernel_linearize=False", cfg._replace(kernel_linearize=False),
-         QUADROTOR_SPEC, 25, False, "lanes"),
-        ("backend=xla requested", cfg, QUADROTOR_SPEC, 25, False, "xla"),
+        ("GPU, backend auto (the default)", "auto", "gpu", False, False),
+        ("GPU, backend lanes", "lanes", "gpu", False, False),
+        ("GPU, per-scenario GP population", "auto", "gpu", False, True),
+        ("GPU, backend xla", "xla", "gpu", False, False),
+        ("CPU, backend auto (the default)", "auto", "cpu", False, False),
+        ("CPU, backend lanes", "lanes", "cpu", False, False),
+        ("CPU, interpret=True", "auto", "cpu", True, False),
+        ("CPU, backend xla", "xla", "cpu", False, False),
     ]
-    print("| Requested configuration | Path taken | Why |")
-    print("|---|---|---|")
-    for label, c, spec, T, gpb, backend in rows:
-        d = dispatch_decision(c, spec, T, gpb, backend)
-        print(f"| {label} | `{d.path}` | {d.reason} |")
+    print("| Requested configuration | Path taken | Interpret | Why |")
+    print("|---|---|---|---|")
+    for label, backend, platform, interpret, gpb in rows:
+        d = dispatch_decision(backend, platform, interpret, gpb)
+        print(f"| {label} | `{d.path}` | {d.interpret} | {d.reason} |")
+    print("| any other platform | error | | `ValueError`: unsupported platform |")
 
 
 if __name__ == "__main__":

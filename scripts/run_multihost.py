@@ -1,14 +1,16 @@
 """Multi-host / multi-chip scale-out driver (BASELINE config 5: 64k scenarios).
 
-Shards a large scenario batch over every available device (ICI within a slice,
-DCN across hosts after `jax.distributed.initialize`) and runs closed-loop GP-MPC
-steps; per-device work is the lane-packed Pallas solve, cross-device reductions
-(mean tracking error, aggregate solves/s) ride XLA collectives.
+Shards a large scenario batch over every available device (NVLink within a
+host, the network across hosts after `jax.distributed.initialize`) and runs
+closed-loop GP-MPC steps; per-device work is the batched controller step,
+cross-device reductions (mean tracking error, aggregate solves/s) ride XLA
+collectives.
 
 Run modes:
-  * real TPU slice, multi-host:   python scripts/run_multihost.py --distributed
-  * real TPU, single host:        python scripts/run_multihost.py
-  * local validation (no TPU):    python scripts/run_multihost.py --virtual 8 \
+  * GPU hosts, multi-host:        python scripts/run_multihost.py --distributed \
+                                      --coordinator HOST:PORT --num-processes N --process-id I
+  * GPUs of one host:             python scripts/run_multihost.py
+  * local validation (no GPU):    python scripts/run_multihost.py --virtual 8 \
                                       --scenarios 64 --steps 2 --backend xla
   * local MULTI-PROCESS validation (exercises jax.distributed.initialize +
     cross-process Gloo collectives on CPU — the DCN code path with N local
@@ -39,7 +41,7 @@ def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--scenarios", type=int, default=65536)
     ap.add_argument("--steps", type=int, default=10)
-    ap.add_argument("--backend", default="lanes", choices=["lanes", "xla"])
+    ap.add_argument("--backend", default="auto", choices=["auto", "lanes", "xla"])
     ap.add_argument("--horizon", type=int, default=25)
     ap.add_argument("--gp-points", type=int, default=128)
     ap.add_argument("--distributed", action="store_true", help="jax.distributed.initialize()")
@@ -247,8 +249,8 @@ def main():
         # locks this in).
         from gpmpc_tpu.parallel.mesh import init_distributed
 
-        # Explicit coordinator triple = local virtual-host worker; bare
-        # --distributed = real TPU pod auto-bootstrap.
+        # Explicit coordinator triple: a local virtual-host worker or a GPU
+        # host (JAX has no cluster auto-detection on plain GPU hosts).
         init_distributed(
             coordinator_address=args.coordinator,
             num_processes=args.num_processes,
@@ -263,7 +265,7 @@ def main():
     from gpmpc_tpu.envs import drone
     from gpmpc_tpu.envs.drone import DroneFigureEightEnv
     from gpmpc_tpu.models.symbolic import symbolic_attitude
-    from gpmpc_tpu.parallel.batch import batched_gpmpc_step
+    from gpmpc_tpu.parallel.batch import make_batched_controller_step
     from gpmpc_tpu.parallel.mesh import make_mesh
 
     pid = jax.process_index()
@@ -292,12 +294,14 @@ def main():
     env_p = env.p
     traj = env.trajectory
 
+    # The controller step shards the scenario axis itself (under shard_map on
+    # the kernel path, which XLA would not partition).
+    ctrl_step = make_batched_controller_step(model, ctrl.cfg, mesh, backend=args.backend)
+
     def closed_loop(consts, gpm, env_states, ctrl_states, obs):
-        u, ctrl_states, _ = batched_gpmpc_step(
-            model, ctrl.cfg, consts, gpm, ctrl_states, obs, backend=args.backend
-        )
+        u, ctrl_states, _ = ctrl_step(consts, gpm, ctrl_states, obs)
         env_states, obs, _, _, _ = jax.vmap(lambda s, a: drone.env_step(env_p, s, a))(env_states, u)
-        # Cross-device reduction over the sharded scenario axis (ICI/DCN collective).
+        # Cross-device reduction over the sharded scenario axis (XLA collective).
         ref = traj[jnp.mod(ctrl_states.traj_step[0], traj.shape[0])]
         err = jnp.sqrt((obs[:, 0] - ref[0]) ** 2 + (obs[:, 2] - ref[2]) ** 2 + (obs[:, 4] - ref[4]) ** 2)
         return env_states, ctrl_states, obs, u, jnp.mean(err)
@@ -361,7 +365,6 @@ def main():
         print(json.dumps({
             "metric": f"solves_per_sec[multihost_{jax.process_count()}proc_{n_dev}dev_B{B}_{args.backend}]",
             "value": round(sps, 1), "unit": "solves/s",
-            "vs_baseline": round(sps / 1e4, 4),
             "mean_tracking_err_m": round(float(err), 4),
         }))
 

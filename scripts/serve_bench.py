@@ -7,7 +7,7 @@ dispatcher (gpmpc_tpu/runtime/server.py). Prints one JSON line.
 
 Usage:
   python scripts/serve_bench.py [--clients 64] [--steps 50] [--tile 128]
-                                [--backend lanes|xla] [--platform cpu]
+                                [--backend auto|lanes|xla] [--platform cpu]
 """
 
 from __future__ import annotations
@@ -30,14 +30,14 @@ def main():
     p.add_argument("--clients", type=int, default=64)
     p.add_argument("--steps", type=int, default=50)
     p.add_argument("--tile", type=int, default=128)
-    p.add_argument("--backend", default="lanes")
+    p.add_argument("--backend", default="auto")
     p.add_argument("--max-wait-ms", type=float, default=2.0)
     p.add_argument("--pipeline", type=int, default=2, help="in-flight batch depth")
     p.add_argument(
         "--actions-per-step", type=int, default=1,
         help="N-step action-horizon replies: each request returns the first N "
         "actions of the plan and the client comes back after N plant steps — "
-        "amortizes the per-request round-trip (the tunnel fetch) over N actions",
+        "amortizes the per-request round-trip over N actions",
     )
     args = p.parse_args()
     if args.clients > args.tile:

@@ -19,7 +19,7 @@ def test_shipped_yaml_loads():
 
 
 def test_reference_schema_subset_loads():
-    """A config written for the reference (no TPU-native keys) must load."""
+    """A config written for the reference (none of the keys this framework adds) must load."""
     raw = {
         "save_dir": "saves/", "task": "quadrotor", "seed": 1,
         "gpmpc": {
@@ -35,7 +35,7 @@ def test_reference_schema_subset_loads():
     }
     cfg = Config.from_dict(raw)
     assert cfg.gpmpc.sparse_gp is True
-    # TPU-native keys take their defaults
+    # the added keys take their defaults
     assert cfg.gpmpc.max_gp_points == 128
     assert cfg.gpmpc.parallel_scan is False
 

@@ -165,15 +165,12 @@ def test_gpmpc_ard_option(env):
     u = ctrl.select_action(np.asarray(env.trajectory[0]))
     assert np.all(np.isfinite(u))
 
-    # ARD rides the FAST paths too (round-3): the lanes backend — fused GP
-    # variance kernel + in-kernel linearizer with per-dim lengthscales — must
-    # match the XLA path on the same batch.
+    # ARD rides the QP-kernel path too: per-dim lengthscales through the
+    # batched variance and jacfwd linearization must match the XLA path.
     obs_b = jnp.asarray(env.trajectory[0])[None]
     st_b = jax.tree.map(lambda a: a[None], mpc_mod.init_state(6, 12, 4))
-    cfg_fused = ctrl.cfg._replace(kernel_linearize=True)
     u_l, _, _ = gpmpc_mod.batched_select_action_lanes(
-        model, cfg_fused, ctrl.consts, ctrl.gp_model, st_b, obs_b,
-        interpret=True, var_backend="pallas",
+        model, ctrl.cfg, ctrl.consts, ctrl.gp_model, st_b, obs_b, interpret=True,
     )
     np.testing.assert_allclose(np.asarray(u_l[0]), u, atol=5e-4)
 

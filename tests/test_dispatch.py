@@ -1,121 +1,94 @@
 """Backend-dispatch semantics: every cell of the documented matrix, and no
 silent fallback cliffs.
 
-`parallel/batch.py::dispatch_decision` is the single source of truth for which
-path a configuration takes (lanes-fused / lanes / xla); `batched_gpmpc_step`
-executes it and warns ONCE per distinct degradation reason (the XLA fallback
-is ~150x slower at the reference problem size — a user benchmarking T=120 or
-a closure-less family must see why). `scripts/gen_dispatch_table.py` renders
-the same function into the README matrix, so these cells and the docs cannot
-drift apart.
+`parallel/batch.py::dispatch_decision` is the single place that decides the
+step path from the platform (the Pallas QP kernel on a GPU, the XLA path on
+the CPU unless interpret mode is requested explicitly); `batched_gpmpc_step`
+executes it and warns ONCE per distinct degradation reason.
+`scripts/gen_dispatch_table.py` renders the same function into the README
+matrix, so these cells and the docs cannot drift apart.
 """
 
-import dataclasses
 import warnings
 
 import numpy as np
 import pytest
 
 from gpmpc_tpu.models import cartpole as cartpole_mod
-from gpmpc_tpu.models.residual import CARTPOLE_SPEC, QUADROTOR_SPEC, TWOLINK_SPEC
-from gpmpc_tpu.ops.sqp import SqpConfig
-from gpmpc_tpu.ops.sqp_lanes import (
-    MAX_FUSED_HORIZON,
-    MAX_STREAM_HORIZON,
-    MAX_STREAM_HORIZON_SOFT,
-    MAX_STREAM2_HORIZON,
-    MAX_STREAM2_HORIZON_SOFT,
-)
 from gpmpc_tpu.parallel.batch import dispatch_decision
-
-CFG = SqpConfig(sqp_iters=4, qp_iters=6, kernel_linearize=True)
-
 
 # The documented dispatch matrix (README "Dispatch semantics"), cell by cell.
 MATRIX = [
-    # (cfg, spec, T, gp_batched, backend) -> (path, reason-substring)
-    ((CFG, QUADROTOR_SPEC, 25, False, "xla"), ("xla", "requested")),
-    ((CFG, QUADROTOR_SPEC, 25, False, "lanes"), ("lanes-fused", "flagship")),
-    ((CFG, CARTPOLE_SPEC, 25, False, "lanes"), ("lanes-fused", "flagship")),
-    ((CFG, TWOLINK_SPEC, 25, False, "lanes"), ("lanes-fused", "flagship")),
-    # the fused path serves up to its cap; past it the QP stays in lanes with
-    # jacfwd linearization (the tier-2 streaming band, round 5)
-    ((CFG, QUADROTOR_SPEC, MAX_FUSED_HORIZON, False, "lanes"),
-     ("lanes-fused", "flagship")),
-    ((CFG, QUADROTOR_SPEC, MAX_FUSED_HORIZON + 1, False, "lanes"),
-     ("lanes", "fused-path cap")),
-    ((CFG, QUADROTOR_SPEC, MAX_STREAM2_HORIZON, False, "lanes"),
-     ("lanes", "fused-path cap")),
-    ((CFG, QUADROTOR_SPEC, MAX_STREAM2_HORIZON + 1, False, "lanes"),
-     ("xla", "exceeds the lanes cap")),
-    # soft state bounds shrink the caps
-    ((CFG._replace(soft_x_penalty=10.0), QUADROTOR_SPEC,
-      MAX_STREAM2_HORIZON_SOFT + 1, False, "lanes"),
-     ("xla", "soft state bounds")),
-    ((CFG._replace(soft_x_penalty=10.0), QUADROTOR_SPEC,
-      MAX_STREAM2_HORIZON_SOFT, False, "lanes"),
-     ("lanes", "fused-path cap")),
-    ((CFG._replace(soft_x_penalty=10.0), QUADROTOR_SPEC,
-      MAX_STREAM_HORIZON_SOFT, False, "lanes"),
-     ("lanes-fused", "flagship")),
-    # per-scenario GP population: lanes QP, XLA linearization
-    ((CFG, QUADROTOR_SPEC, 25, True, "lanes"), ("lanes", "population")),
-    # family without an in-kernel linearizer closure
-    ((CFG, dataclasses.replace(QUADROTOR_SPEC, supports_kernel_linearize=False), 25, False,
-      "lanes"),
-     ("lanes", "no in-kernel linearizer")),
-    # kernel linearization disabled by config
-    ((CFG._replace(kernel_linearize=False), QUADROTOR_SPEC, 25, False, "lanes"),
-     ("lanes", "kernel_linearize disabled")),
+    # (backend, platform, interpret, gp_batched) -> (path, reason-substring, interpret)
+    (("xla", "gpu", False, False), ("xla", "requested", False)),
+    (("xla", "cpu", False, False), ("xla", "requested", False)),
+    (("xla", "gpu", False, True), ("xla", "requested", False)),
+    (("xla", "cpu", True, False), ("xla", "requested", False)),
+    (("auto", "gpu", False, False), ("lanes", "Pallas QP kernel", False)),
+    (("lanes", "gpu", False, False), ("lanes", "Pallas QP kernel", False)),
+    (("auto", "gpu", False, True), ("lanes", "population", False)),
+    (("lanes", "gpu", False, True), ("lanes", "population", False)),
+    (("auto", "cpu", False, False), ("xla", "no GPU", False)),
+    (("lanes", "cpu", False, False), ("xla", "no GPU", False)),
+    (("auto", "cpu", False, True), ("xla", "no GPU", False)),
+    (("auto", "cpu", True, False), ("lanes", "interpret mode", True)),
+    (("lanes", "cpu", True, False), ("lanes", "interpret mode", True)),
+    (("lanes", "cpu", True, True), ("lanes", "interpret mode", True)),
 ]
 
 
 @pytest.mark.parametrize("case", MATRIX, ids=[f"cell{i}" for i in range(len(MATRIX))])
 def test_dispatch_matrix(case):
-    (cfg, spec, T, gp_batched, backend), (want_path, want_reason) = case
-    d = dispatch_decision(cfg, spec, T, gp_batched, backend)
+    (backend, platform, interpret, gp_batched), (want_path, want_reason, want_interp) = case
+    d = dispatch_decision(backend, platform, interpret, gp_batched)
     assert d.path == want_path, (d.path, d.reason)
     assert want_reason in d.reason, d.reason
+    assert d.interpret == want_interp
+
+
+@pytest.mark.parametrize("platform,interpret,want", [
+    ("gpu", False, ("lanes", False)),
+    ("cpu", False, ("xla", False)),
+    ("cpu", True, ("lanes", True)),
+    ("rocm", False, ValueError),
+], ids=["gpu", "cpu", "interpret", "unknown"])
+def test_dispatch_per_platform(platform, interpret, want):
+    """The default request on each platform: the kernel on a GPU, XLA on the
+    CPU, the kernel in interpret mode on the CPU only when asked, and an error
+    on any other platform (no silent fallback)."""
+    if want is ValueError:
+        with pytest.raises(ValueError, match="unsupported platform"):
+            dispatch_decision(platform=platform, interpret=interpret)
+        return
+    d = dispatch_decision(platform=platform, interpret=interpret)
+    assert (d.path, d.interpret) == want
 
 
 def test_degraded_flag_is_structured():
     """Warning policy keys off dispatch_decision's `degraded` flag, not on
-    substring matching of the reason text (a reason containing the word
-    'disabled' must not silently suppress a genuine degradation warning)."""
-    # explicit user choices: not degraded
-    assert not dispatch_decision(CFG, QUADROTOR_SPEC, 25, False, "xla").degraded
-    assert not dispatch_decision(
-        CFG._replace(kernel_linearize=False), QUADROTOR_SPEC, 25, False, "lanes"
-    ).degraded
-    assert not dispatch_decision(CFG, QUADROTOR_SPEC, 25, False, "lanes").degraded
-    # genuine degradations: flagged regardless of wording
-    assert dispatch_decision(
-        CFG, QUADROTOR_SPEC, MAX_STREAM2_HORIZON + 1, False, "lanes"
-    ).degraded
-    assert dispatch_decision(
-        CFG, QUADROTOR_SPEC, MAX_FUSED_HORIZON + 1, False, "lanes"
-    ).degraded
-    assert dispatch_decision(CFG, QUADROTOR_SPEC, 25, True, "lanes").degraded
-    assert dispatch_decision(
-        CFG,
-        dataclasses.replace(QUADROTOR_SPEC, name="custom", supports_kernel_linearize=False),
-        25, False, "lanes",
-    ).degraded
+    substring matching of the reason text."""
+    # explicit user choices and platform defaults: not degraded
+    assert not dispatch_decision("xla", "cpu").degraded
+    assert not dispatch_decision("auto", "cpu").degraded
+    assert not dispatch_decision("auto", "gpu").degraded
+    assert not dispatch_decision("lanes", "cpu", interpret=True).degraded
+    # the kernel was asked for but the platform cannot run it compiled
+    assert dispatch_decision("lanes", "cpu").degraded
 
 
-def test_cap_ordering():
-    """The documented three-tier cap ordering: fused == tier-1 stream cap,
-    tier-2 extends beyond it, and the soft caps sit below their hard
-    counterparts. The MATRIX cells above cover the bands these induce."""
-    assert MAX_FUSED_HORIZON == MAX_STREAM_HORIZON
-    assert MAX_STREAM_HORIZON < MAX_STREAM2_HORIZON
-    assert MAX_STREAM_HORIZON_SOFT < MAX_STREAM_HORIZON
-    assert MAX_STREAM2_HORIZON_SOFT < MAX_STREAM2_HORIZON
+def test_gpu_interpret_rejected():
+    """interpret mode is never taken on a GPU, not even when asked for: a
+    kernel that does not compile there must fail, not fall back."""
+    with pytest.raises(ValueError, match="interpret mode"):
+        dispatch_decision("auto", "gpu", interpret=True)
+    with pytest.raises(ValueError, match="backend"):
+        dispatch_decision("pallas", "gpu")
 
 
-def test_horizon_fallback_warns_once():
-    """A real batched_gpmpc_step past the lanes cap emits ONE structured
-    warning naming the reason, and only once per process for that reason."""
+def test_cpu_fallback_warns_once():
+    """A real batched_gpmpc_step that asks for the kernel on the CPU without
+    interpret mode takes the XLA path and emits ONE structured warning naming
+    the reason, and only once per process for that reason."""
     import jax
     import jax.numpy as jnp
 
@@ -126,7 +99,7 @@ def test_horizon_fallback_warns_once():
     from gpmpc_tpu.parallel.batch import batched_gpmpc_step
     from gpmpc_tpu.utils.benchkit import synthetic_cartpole_gp_model
 
-    T = MAX_STREAM2_HORIZON + 8
+    T = 8
     env = cartpole_env.CartpoleTrackEnv(cartpole_env.EnvParams.default())
     model = cartpole_mod.symbolic_cartpole(dt=0.02)
     ctrl = GPMPC(
@@ -143,7 +116,7 @@ def test_horizon_fallback_warns_once():
     states = jax.vmap(lambda _: mpc_mod.init_state(T, model.nx, model.nu))(jnp.arange(B))
 
     batch_mod._DISPATCH_WARNED.clear()
-    with pytest.warns(UserWarning, match="exceeds the lanes cap"):
+    with pytest.warns(UserWarning, match="no GPU"):
         u, _, _ = batched_gpmpc_step(
             model, ctrl.cfg, ctrl.consts, gp, states, obs, backend="lanes"
         )
@@ -157,10 +130,10 @@ def test_horizon_fallback_warns_once():
 
 @pytest.mark.slow
 def test_wrapper_lanes_backend_parity():
-    """GPMPC.select_action routed through the lanes padded-tile path (item 5:
-    the reference-shaped API reports the flagship backend on TPU) matches the
-    XLA path step-for-step. On CPU the lanes program runs in interpret mode —
-    slow, hence the tiny horizon and step count."""
+    """GPMPC.select_action routed through the QP kernel (the reference-shaped
+    API takes the kernel path on a GPU) matches the XLA path step-for-step. On
+    the CPU the kernel runs in interpret mode — slow, hence the tiny horizon
+    and step count."""
     from gpmpc_tpu.control.gpmpc import GPMPC
     from gpmpc_tpu.envs import cartpole_env
     from gpmpc_tpu.models import cartpole
@@ -174,6 +147,7 @@ def test_wrapper_lanes_backend_parity():
             q_mpc=[5.0, 0.1, 20.0, 0.5], r_mpc=[0.05],
             sparse_gp=True, max_gp_samples=10, seed=1, max_gp_points=32,
             sqp_iters=3, qp_iters=6, step_backend=backend,
+            interpret=backend == "lanes",
             bounds=(cartpole.state_bounds(), cartpole.input_bounds()),
         )
 
@@ -227,22 +201,27 @@ def test_readme_dispatch_table_matches_generator():
     )
 
 
-def test_forced_lanes_backend_validates_horizon_cap():
-    """step_backend='lanes' forced past the lanes cap must fail at backend
-    resolution with an error naming the knob and the cap, not at trace time
-    inside the lanes kernel (advisor finding, round 4)."""
+def test_gpmpc_step_backend_follows_dispatch():
+    """The reference-shaped GPMPC resolves its step path through
+    dispatch_decision: XLA on the CPU by default, the kernel in interpret mode
+    only when asked, and a named error for an unknown backend."""
     from gpmpc_tpu.control.gpmpc import GPMPC
     from gpmpc_tpu.envs import cartpole_env
-    from gpmpc_tpu.ops.sqp_lanes import MAX_STREAM2_HORIZON
 
     env = cartpole_env.CartpoleTrackEnv(cartpole_env.EnvParams.default())
     model = cartpole_mod.symbolic_cartpole(dt=0.02)
-    ctrl = GPMPC(
-        model, env.trajectory, None, horizon=MAX_STREAM2_HORIZON + 4,
-        q_mpc=[5.0, 0.1, 20.0, 0.5], r_mpc=[0.05],
-        sparse_gp=True, max_gp_samples=10, seed=1, max_gp_points=32,
-        sqp_iters=2, qp_iters=3, step_backend="lanes",
-        bounds=(cartpole_mod.state_bounds(), cartpole_mod.input_bounds()),
-    )
-    with pytest.raises(ValueError, match="step_backend='lanes'.*lanes cap"):
-        ctrl._resolve_step_backend()
+
+    def build(**kw):
+        return GPMPC(
+            model, env.trajectory, None, horizon=8,
+            q_mpc=[5.0, 0.1, 20.0, 0.5], r_mpc=[0.05],
+            sparse_gp=True, max_gp_samples=10, seed=1, max_gp_points=32,
+            sqp_iters=2, qp_iters=3,
+            bounds=(cartpole_mod.state_bounds(), cartpole_mod.input_bounds()), **kw,
+        )
+
+    assert build()._resolve_step_backend() == "xla"
+    assert build(step_backend="xla")._resolve_step_backend() == "xla"
+    assert build(step_backend="lanes", interpret=True)._resolve_step_backend() == "lanes"
+    with pytest.raises(ValueError, match="step_backend"):
+        build(step_backend="pallas")

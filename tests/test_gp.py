@@ -255,8 +255,8 @@ def test_overtrained_fit_recovers_instead_of_raising():
     # (noise driven to ~2e-9, far below where a rank-deficient Gram is safe).
     # Note the PLAIN factorization survives this on CPU LAPACK (its pivot
     # errors are locally, not globally, bounded) — the historical crash
-    # reproduced on the real twolink residual dataset (CPU) and under the
-    # TPU's bf16 matmul precision. The end-to-end regression coverage is the
+    # reproduced on the real twolink residual dataset (CPU) and under
+    # reduced-precision (bf16) matmuls. The end-to-end regression coverage is the
     # twolink learning-loop test at the config-default iterations=500
     # (tests/test_learning_loop.py); this unit test pins the recovery
     # properties of the escalation path itself.

@@ -1,8 +1,7 @@
-"""Multi-host (DCN) init path, executed for real with local processes.
+"""Multi-host init path, executed for real with local processes.
 
-The reference has no distributed layer at all (SURVEY.md §2.3); for the TPU
-build, multi-host scale-out is a target capability (BASELINE.md: solves/s at
-N>=2 hosts). Real multi-host hardware is not available in CI, so this test
+The reference has no distributed layer at all (SURVEY.md §2.3); here
+multi-host scale-out is a target capability. Real multi-host hardware is not available in CI, so this test
 runs the genuine code path — `parallel/mesh.py::init_distributed`
 (`jax.distributed.initialize`) + a globally-sharded `batched_gpmpc_step` —
 across TWO LOCAL PROCESSES with a 127.0.0.1 coordinator and cross-process Gloo

@@ -161,7 +161,7 @@ def test_boxqp_active_bounds_vs_slsqp():
 
 
 def test_boxqp_batched_vmap():
-    """The solver must vmap cleanly over a scenario batch (the TPU throughput story)."""
+    """The solver must vmap cleanly over a scenario batch (the batched throughput story)."""
     lqs = [random_lq(s, dtype=jnp.float32) for s in range(4)]
     qp = OcpQpData(
         A=jnp.stack([l.A for l in lqs]),

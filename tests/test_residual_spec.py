@@ -71,10 +71,6 @@ def test_quadrotor_make_targets_equals_legacy_preprocess():
 def test_cartpole_spec_consistency():
     s = CARTPOLE_SPEC
     assert (s.num_gps, s.n_unc, s.z_dim, s.gp_input_dim) == (2, 2, 4, 3)
-    # since the cartpole closure landed in _FAMILY_FC_JAC, the family rides the
-    # fused fast path too (tests/test_pallas_linearize.py checks its parity)
-    assert s.supports_kernel_linearize
-    assert s.kernel_params is not None
     z = jnp.asarray([0.1, 0.2, -0.3, 1.5])
     np.testing.assert_allclose(
         np.asarray(s.mean_rows(jnp.asarray([1.0, -2.0]), z)), [1.0, -2.0]

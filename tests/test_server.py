@@ -384,7 +384,7 @@ def test_server_serves_nonquadrotor_family():
     same ControlServer match the serial functional controller."""
     from gpmpc_tpu.envs import cartpole_env
     from gpmpc_tpu.models import cartpole
-    from tests.test_pallas_linearize import cartpole_gp
+    from gpmpc_tpu.utils.benchkit import synthetic_cartpole_gp_model
 
     env = cartpole_env.CartpoleTrackEnv(cartpole_env.EnvParams.default())
     model = cartpole.symbolic_cartpole(dt=0.02)
@@ -395,7 +395,9 @@ def test_server_serves_nonquadrotor_family():
         sqp_iters=3, qp_iters=5,
         bounds=(cartpole.state_bounds(), cartpole.input_bounds()),
     )
-    gp = cartpole_gp(0)
+    gp = synthetic_cartpole_gp_model(
+        max_points=32, max_inducing=10, n_data=24, n_train=10
+    )
     server = ControlServer(
         model, ctrl.cfg, ctrl.consts, gp, tile=8, backend="xla", max_wait_ms=50.0
     )

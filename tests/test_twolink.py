@@ -20,10 +20,6 @@ def test_twolink_spec_consistency():
     s = TWOLINK_SPEC
     assert (s.num_gps, s.n_unc, s.z_dim, s.gp_input_dim) == (2, 2, 6, 6)
     assert s.uncertain_dim == (2, 3)
-    # the arm has a hand-derived kernel closure too (D=6 GP inputs through the
-    # generic _gp_mean_grad; parity in tests/test_pallas_linearize.py)
-    assert s.supports_kernel_linearize
-    assert s.kernel_params is not None
     z = jnp.asarray([0.1, 0.2, -0.3, 0.4, 0.5, -0.6])
     np.testing.assert_allclose(
         np.asarray(s.mean_rows(jnp.asarray([1.0, -2.0]), z)), [1.0, -2.0]
